@@ -1,0 +1,99 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, under the
+repository's ``build/torch_kernels/`` directory, and ctypes loads it. The
+library's name carries a hash of the sources and flags, so an edited
+kernel is rebuilt and a current one is reused. Pointers, sizes and the
+current CUDA stream cross the interface as ``c_void_p`` / ``c_int``;
+every entry point returns ``cudaGetLastError()`` after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc") or "",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at first use on a CUDA machine")
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")) + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libdna_ldpc_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _build(so_path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so_path)  # atomic: a concurrent build never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, compiled on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so_path = library_path()
+            if not os.path.exists(so_path):
+                _build(so_path)
+            lib = ctypes.CDLL(so_path)
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.bp_blocked_launch.argtypes = [vp] * 6 + [ci] * 5 + [cf, vp]
+            lib.bp_blocked_launch.restype = ci
+            lib.pairhmm_launch.argtypes = [vp] * 8 + [ci, ci, vp]
+            lib.pairhmm_launch.restype = ci
+            lib.dna_cuda_error_string.argtypes = [ci]
+            lib.dna_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a launch entry point returned a CUDA error."""
+    if status != 0:
+        msg = load().dna_cuda_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain torch twins, on the card.
+
+This file imports neither ``jax`` nor the JAX package, so it runs on the
+GPU machine (which has no ``jax``). The repository's conftest imports
+``jax``, so run it there without conftest files:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Without a CUDA device every test skips. Tolerances: K1 is bit-equal to
+its twin (same rounding points, same summation order, the same libdevice
+tanh/log); K2's posteriors agree within atol = rtol = 1e-4 and its EA
+score equals the native ``mea_score`` of its own bf16-rounded posterior;
+edit distances are integers (bit-equal)."""
+
+import numpy as np
+import pytest
+import torch
+
+from dna_ldpc_tpu_torch import native_lib
+from dna_ldpc_tpu_torch.models import BlockedCode, build_rs_ldpc, dna_storage_blocked
+from dna_ldpc_tpu_torch.ops import bp_cuda
+from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
+from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
+from dna_ldpc_tpu_torch.ops.msa.align import align_clusters, mea_score
+from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_core
+from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
+from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
+from dna_ldpc_tpu_torch.utils.dna import seqs_to_matrix
+
+pytestmark = pytest.mark.cuda
+MAG = float(np.log(0.98 / 0.02))
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _coverage_llrs(code, n, cov_mean, eps, seed):
+    rng = np.random.default_rng(seed)
+    cw = group_union_codewords(code, n, rng)
+    cov = rng.poisson(cov_mean, cw.shape)
+    errs = rng.binomial(cov, eps)
+    return cw, ((cov - 2 * errs) * MAG * np.where(cw == 0, 1.0, -1.0)).astype(np.float32)
+
+
+def _copies(rng, n, length=136):
+    """n noisy reads of one random strand: 1% substitutions, 0-3 deletions."""
+    base = rng.integers(0, 4, length)
+    out = []
+    for _ in range(n):
+        s = base.copy()
+        sub = rng.random(length) < 0.01
+        s[sub] = (s[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        s = np.delete(s, rng.choice(length, int(rng.integers(0, 4)), replace=False))
+        out.append("".join("ACGT"[k] for k in s))
+    return out
+
+
+def _reads(rng, n):
+    """n read pairs, each two copies of its own strand."""
+    pairs = [_copies(rng, 2) for _ in range(n)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def _same_bp(k, r):
+    for name in ("bits", "success", "unsat", "iterations"):
+        assert torch.equal(getattr(k, name), getattr(r, name)), name
+
+
+@pytest.mark.parametrize("cov_mean,eps", [(5.0, 0.02), (1.5, 0.05)])
+def test_bp_kernel_small_code(dev, cov_mean, eps):
+    code = BlockedCode.detect(build_rs_ldpc(4, 12, 4))
+    _, llr = _coverage_llrs(code, 40, cov_mean, eps, seed=11)
+    t = torch.from_numpy(llr).to(dev)
+    before = bp_cuda.launches
+    k = bp_cuda.bp_decode_blocked(code, t, 50)
+    r = bp_cuda.bp_decode_blocked_ref(code, t, 50)
+    torch.cuda.synchronize()
+    assert bp_cuda.launches == before + 1
+    _same_bp(k, r)
+
+
+def test_bp_kernel_deployed_code_edge_cases(dev):
+    """The deployed 8 x 72 x 256 code: trial-like words, zero LLRs
+    (erasures; decided at iteration 0), NaN and infinite inputs."""
+    code = dna_storage_blocked()
+    cw, llr = _coverage_llrs(code, 16, 3.7, 0.02, seed=4)
+    llr[0] = 0.0
+    llr[1, ::37] = np.nan
+    llr[2, ::41] = np.inf
+    llr[3, ::43] = -np.inf
+    t = torch.from_numpy(llr).to(dev)
+    k, r = bp_cuda.bp_decode_blocked(code, t, 100), bp_cuda.bp_decode_blocked_ref(code, t, 100)
+    _same_bp(k, r)
+    assert k.iterations[0].item() == 0 and k.success[0].item()
+    ok = k.success.cpu().numpy()
+    assert ok[4:].all() and (k.bits.cpu().numpy()[4:] == cw[4:]).all()
+
+
+def test_pairhmm_kernel_matches_twin(dev):
+    rng = np.random.default_rng(7)
+    xs, ys = _reads(rng, 64)
+    xs += ["", "A", "ACGTN" * 20]
+    ys += ["ACG", "", "ACGTA" * 20]
+    X, Y, lx, ly = encode_pairs(xs, ys, 160)
+    args = [torch.as_tensor(a, device=dev) for a in (X, Y, lx, ly)]
+    before = pairhmm_cuda.launches
+    pk, ek = pairhmm_cuda.post_ea(*args, 160)
+    pr, er = pairhmm_cuda.post_ea_ref(*args, 160)
+    torch.cuda.synchronize()
+    assert pairhmm_cuda.launches == before + 1
+    torch.testing.assert_close(pk, pr, atol=1e-4, rtol=1e-4)
+    pb = pk.to(torch.bfloat16).float().cpu().numpy()
+    ea = ek.cpu().numpy()
+    for p in range(len(xs)):
+        q = pb[p, : lx[p], : ly[p]]
+        assert np.float32(mea_score(q) if q.size else 0.0) == ea[p], p
+
+
+def test_edit_distance_device_matches_native(dev):
+    rng = np.random.default_rng(3)
+    xs, ys = _reads(rng, 128)
+    seqs = xs + ys
+    a, b = np.triu_indices(len(seqs), k=1)
+    buf, offs, lens = native_lib.pack_seqs(seqs)
+    got = edit_distance_pairs_device(
+        seqs_to_matrix(seqs, fill=b"\x00"), lens.astype(np.int64), a, b, dev
+    )
+    np.testing.assert_array_equal(got, native_lib.edit_distance_batch_native(buf, offs, lens, a, b))
+
+
+def test_consistency_and_align_clusters_on_device(dev):
+    """The consistency transform in full f32 on the card matches the CPU
+    within 1e-5; align_clusters on the card gives the CPU's rows."""
+    rng = np.random.default_rng(5)
+    x = (rng.random((4, 10, 40, 40)) * (rng.random((4, 10, 40, 40)) < 0.1)).astype(np.float32)
+    inv = torch.full((4,), 0.2)
+    got = consistency_core(torch.from_numpy(x).to(dev), inv.to(dev), 5, 2).cpu()
+    torch.testing.assert_close(got, consistency_core(torch.from_numpy(x), inv, 5, 2), atol=1e-5, rtol=0)
+
+    clusters = [_copies(rng, n) for n in (2, 3, 5, 4, 1)]
+    assert align_clusters(clusters, refine_iters=10, device=dev) == align_clusters(clusters, refine_iters=10)
