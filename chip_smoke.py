@@ -6,8 +6,8 @@
 Phases, one line each; any failure raises and the exit code is non-zero:
 
 1. the card's name and power limit, as nvidia-smi prints them, then the
-   build of the CUDA kernels (nvcc, sm_90a) and the native host library
-   from source;
+   build of the CUDA kernels (one nvcc process per source, all started
+   together, sm_90a) and the native host library from source;
 2. K1, the fused BP kernel, against its plain torch twin on the card:
    64 trial-like codewords of the deployed 2048 x 18432 code, 200
    iterations — success, unsat and iterations equal, bits equal where
@@ -20,23 +20,40 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 4. the device edit distance against the native one on the same pairs
    (bit-equal);
 5. one full trial at the reference's scale: 272 codewords, 72,000
-   simulated reads, ``decode_trial`` on the card — every codeword must be
-   recovered, through both kernels (their launch counts are reset just
-   before and read just after).
+   simulated reads, ``decode_trial`` on the card through the device MSA
+   — every codeword must be recovered, through all three kernels (their
+   launch counts are reset just before and read just after), with at
+   most 1 % of the MSA clusters handed to the host aligner;
+6. the same reads with ``DNA_LDPC_DEVICE_MSA=0`` (the host-aligner MSA
+   flow) must give the same ``fail_first``, ``fail_final`` and
+   ``n_anneal_iters``; the number of LLR-table entries that differ is
+   printed;
+7. ``mea_dp``, the MEA-DP kernel of the device MSA, against its twin on
+   the BuildPost planes of the first progressive wave of a bucket-8
+   batch of 512 clusters (reads as in phase 3, Lmax = 160, Cmax = 192):
+   codes and positions bit-equal;
+8. the same trial once more through the command line,
+   ``python -m dna_ldpc_tpu_torch.cli simulate``, on codeword and oligo
+   files written to a temporary directory in the reference's formats.
 
 The line before the last is a JSON object with each kernel's launches on
-the trial, error against its twin, and time beside the twin's; the last
-line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
-repository beside it, the script exits non-zero and prints no result.
+the trial of phase 5, error against its twin, and time beside the twin's;
+the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
+without the repository beside it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -54,22 +71,24 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _noisy_pairs(rng, n: int, length: int = 136):
-    """Read pairs of one strand each: two independent copies with
-    substitutions (1%) and 0-3 deletions."""
-    xs, ys = [], []
+def _strand_reads(rng, n: int, length: int = 136) -> list[str]:
+    """n independent copies of one random strand with substitutions (1%)
+    and 0-3 deletions."""
+    base = rng.integers(0, 4, length)
+    out = []
     for _ in range(n):
-        base = rng.integers(0, 4, length)
-        pair = []
-        for _ in range(2):
-            s = base.copy()
-            sub = rng.random(length) < 0.01
-            s[sub] = (s[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
-            s = s[~(rng.random(length) < rng.integers(0, 4) / length)]
-            pair.append("".join("ACGT"[k] for k in s))
-        xs.append(pair[0])
-        ys.append(pair[1])
-    return xs, ys
+        s = base.copy()
+        sub = rng.random(length) < 0.01
+        s[sub] = (s[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+        s = s[~(rng.random(length) < rng.integers(0, 4) / length)]
+        out.append("".join("ACGT"[k] for k in s))
+    return out
+
+
+def _noisy_pairs(rng, n: int):
+    """Read pairs of one strand each."""
+    pairs = [_strand_reads(rng, 2) for _ in range(n)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
 def main() -> int:
@@ -85,12 +104,15 @@ def main() -> int:
     from dna_ldpc_tpu_torch.models.rs_ldpc import dna_storage_pchk
     from dna_ldpc_tpu_torch.ops import bp_cuda
     from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
-    from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
+    from dna_ldpc_tpu_torch.ops.msa import align as msa_align
+    from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, pairhmm_cuda
     from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
-    from dna_ldpc_tpu_torch.pipeline.decode import TrialConfig, decode_trial
+    from dna_ldpc_tpu_torch.pipeline import decode as trial_decode
+    from dna_ldpc_tpu_torch.pipeline.report import parse_result
     from dna_ldpc_tpu_torch.pipeline.simulate import (
         ChannelModel, encode_oligos, group_union_codewords, simulate_reads,
     )
+    from dna_ldpc_tpu_torch.utils.io_formats import write_lines, write_vector
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -191,29 +213,131 @@ def main() -> int:
         raise AssertionError("device edit distances differ from the native ones")
     print(f"[4] edit distance: device == native on 512 pairs (mean {native.mean():.2f})")
 
-    # ---- 5. one full trial -----------------------------------------------
+    # ---- 5. one full trial through the device MSA --------------------------
     cws = group_union_codewords(code, 272, rng)
     if dna_storage_pchk().mulvec(cws).any():
         raise AssertionError("synthetic codewords violate H")
     reads, quals = simulate_reads(encode_oligos(cws), 72000, ChannelModel(), seed=7)
-    bp_cuda.launches = 0
-    pairhmm_cuda.launches = pairhmm_cuda.pairs = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    res = decode_trial(reads, quals, cws, TrialConfig(device="cuda"))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {"bp_blocked": bp_cuda.launches, "pairhmm": pairhmm_cuda.launches}
+    # decode_trial's LLR table, captured from its call of compute_trial_llrs
+    llr_tables = []
+    compute_trial_llrs = trial_decode.compute_trial_llrs
+
+    def capture_llrs(*args, **kwargs):
+        llr_tables.append(compute_trial_llrs(*args, **kwargs))
+        return llr_tables[-1]
+
+    trial_decode.compute_trial_llrs = capture_llrs
+
+    def run_trial():
+        """decode_trial on the card with every launch count reset just
+        before and read just after; returns (result, LLR table, launches,
+        MSA clusters, host-aligner fallbacks, wall seconds)."""
+        bp_cuda.launches = 0
+        pairhmm_cuda.launches = pairhmm_cuda.pairs = 0
+        mea_cuda.launches = 0
+        msa_align.msa_clusters = msa_align.fallback_clusters = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = trial_decode.decode_trial(reads, quals, cws, trial_decode.TrialConfig(device="cuda"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {"bp_blocked": bp_cuda.launches, "pairhmm": pairhmm_cuda.launches,
+                    "mea_dp": mea_cuda.launches}
+        return res, llr_tables[-1], launches, msa_align.msa_clusters, msa_align.fallback_clusters, wall
+
+    res, llr_dev, launches, n_msa, n_fb, wall = run_trial()
     msa_pairs = pairhmm_cuda.pairs
-    print(f"[5] trial: {len(reads)} reads, n_reads_kept {res.n_reads_kept}, MSA pairs {msa_pairs}, "
-          f"fail_first {res.fail_first}, fail_final {res.fail_final}, n_anneal_iters "
-          f"{res.n_anneal_iters}, erasure strands {res.n_erasure_strands}, wall {wall:.2f} s, "
-          f"launches {launches}")
+    print(f"[5] trial (device MSA): {len(reads)} reads, n_reads_kept {res.n_reads_kept}, MSA clusters "
+          f"{n_msa}, MSA pairs {msa_pairs}, host-aligner fallbacks {n_fb}, fail_first {res.fail_first}, "
+          f"fail_final {res.fail_final}, n_anneal_iters {res.n_anneal_iters}, erasure strands "
+          f"{res.n_erasure_strands}, wall {wall:.2f} s, launches {launches}")
     print("[5] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in res.phase_times.items()))
     if res.fail_final or not np.array_equal(res.decoded_bits, cws):
         raise AssertionError(f"trial not recovered: fail_final {res.fail_final}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if n_fb > 0.01 * n_msa:
+        raise AssertionError(f"{n_fb} of {n_msa} MSA clusters fell back to the host aligner")
+
+    # ---- 6. the same reads through the host-aligner MSA flow ----------------
+    os.environ["DNA_LDPC_DEVICE_MSA"] = "0"
+    try:
+        res0, llr_host, launches0, _, _, wall0 = run_trial()
+    finally:
+        del os.environ["DNA_LDPC_DEVICE_MSA"]
+    n_diff = int((llr_host != llr_dev).sum())
+    print(f"[6] trial (DNA_LDPC_DEVICE_MSA=0): fail_first {res0.fail_first}, fail_final "
+          f"{res0.fail_final}, n_anneal_iters {res0.n_anneal_iters}, wall {wall0:.2f} s, launches "
+          f"{launches0}; LLR-table entries that differ from phase 5: {n_diff} of {llr_dev.size}")
+    print("[6] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in res0.phase_times.items()))
+    for name in ("fail_first", "fail_final", "n_anneal_iters"):
+        if getattr(res0, name) != getattr(res, name):
+            raise AssertionError(f"{name} differs between the device MSA and the host-aligner flow")
+
+    # ---- 7. mea_dp against its twin ------------------------------------------
+    rng7 = np.random.default_rng(8)
+    nb, C7 = 8, 512
+    clusters = [_strand_reads(rng7, nb) for _ in range(C7)]
+    prs = msa_align.cluster_pairs(nb)
+    npair = len(prs)
+    posts, ea = msa_align._pair_posteriors(
+        [cl[i] for cl in clusters for i, _ in prs], [cl[j] for cl in clusters for _, j in prs], Lmax, dev
+    )
+    P = device_msa.assemble_transform(
+        posts, torch.arange(C7 * npair, device=dev), torch.ones(C7 * npair, dtype=torch.bool, device=dev),
+        torch.full((C7,), 1.0 / nb, device=dev), nb, 2, C7, Lmax,
+    )
+    waves = [
+        device_msa.wave_masks(
+            msa_align.upgma_join_order(msa_align._ea_dists(cl, ea[c * npair : (c + 1) * npair])), nb, nb
+        )
+        for c, cl in enumerate(clusters)
+    ]
+    mA = torch.as_tensor(np.stack([w[0][0] for w in waves]), device=dev)
+    mB = torch.as_tensor(np.stack([w[1][0] for w in waves]), device=dev)
+    Cmax = Lmax + device_msa.COLUMN_SLACK
+    lens = torch.as_tensor([[len(r) for r in cl] for cl in clusters], device=dev)
+    cpos, _ = device_msa._msa_init(lens, Cmax, Lmax)
+    cposA, wA = device_msa._project(cpos, mA, Cmax, Lmax)
+    cposB, wB = device_msa._project(cpos, mB, Cmax, Lmax)
+    plane = device_msa._build_post(device_msa.build_pblock(P, nb), cposA, cposB, mA, mB, Cmax, Lmax)
+    codes_k, pos_k = mea_cuda.mea_walk(plane, wA, wB, Cmax)
+    codes_r, pos_r = mea_cuda.mea_walk_ref(plane, wA, wB, Cmax)
+    torch.cuda.synchronize()
+    mea_err = max((codes_k.int() - codes_r.int()).abs().max().item(), (pos_k - pos_r).abs().max().item())
+    if mea_err:
+        raise AssertionError(f"mea_dp differs from its twin (max abs {mea_err})")
+    path_len = (codes_k != 0).sum(1).float().mean().item()
+    mea_ms = _cuda_ms(lambda: mea_cuda.mea_walk(plane, wA, wB, Cmax), 20)
+    mea_plain = _cuda_ms(lambda: mea_cuda.mea_walk_ref(plane, wA, wB, Cmax), 2)
+    print(f"[7] mea_dp vs twin: {C7} clusters of {nb} reads, first progressive wave, Cmax={Cmax}, "
+          f"mean path length {path_len:.1f}; codes and positions equal; kernel {mea_ms:.3f} ms, twin "
+          f"{mea_plain:.3f} ms per merge of {C7} clusters")
+
+    # ---- 8. the same trial through the command line ------------------------
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        for i in range(len(cws)):
+            write_vector(os.path.join(d, f"codeword_n18432_m1860_{i + 1}.txt"), cws[i])
+        write_lines(os.path.join(d, "final_DNA.txt"), encode_oligos(cws))
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dna_ldpc_tpu_torch.cli", "simulate", "--rs", "72000", "--start", "0",
+             "--end", "1", "--epsil", "0.02", "--seed", "7", "--oligos", os.path.join(d, "final_DNA.txt"),
+             "--codeword-dir", d, "--out-dir", d, "--device", "cuda"],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.time() - t0
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"CLI simulate exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}"
+            )
+        with open(os.path.join(d, "o_72000_0_0.020000_result.txt")) as f:
+            report = parse_result(f.read())
+    if not report["success"] or report["fail_final"] != res.fail_final:
+        raise AssertionError(f"CLI trial report: {report}")
+    print(f"[8] CLI simulate: exit 0 in {cli_s:.2f} s (process included); report {report}; "
+          f"{proc.stdout.strip().splitlines()[-1]}")
 
     kernels = [
         {"name": "bp_blocked", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/bp_blocked.cu",
@@ -223,6 +347,9 @@ def main() -> int:
          "replaces": "dna_ldpc_tpu/ops/msa/pairhmm_pallas.py:114",
          "launches": launches["pairhmm"], "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain},
+        {"name": "mea_dp", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/mea_dp.cu",
+         "replaces": "dna_ldpc_tpu/ops/msa/device_msa.py:212", "launches": launches["mea_dp"],
+         "max_abs_err": float(mea_err), "ms": mea_ms, "plain_ms": mea_plain},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

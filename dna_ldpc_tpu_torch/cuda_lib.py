@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 At first use, ``nvcc`` compiles every source in ``csrc/`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, under the
-repository's ``build/torch_kernels/`` directory, and ctypes loads it. The
+(``sm_90a``), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, under the
+repository's ``build/torch_kernels/`` directory; ctypes loads it. The
 library's name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and a current one is reused. Pointers, sizes and the
 current CUDA stream cross the interface as ``c_void_p`` / ``c_int``;
@@ -23,10 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -57,19 +55,26 @@ def library_path() -> str:
 
 def _build(so_path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True
-        )
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cu = [p for p in _sources() if p.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cu]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p], stderr=subprocess.PIPE, text=True)
+            for p, o in zip(cu, objs)
+        ]
+        failed = []
+        for p, proc in zip(cu, procs):
+            err = proc.communicate()[1]
+            if proc.returncode:
+                failed.append(f"{os.path.basename(p)}:\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so_path)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(lib, so_path)  # atomic: a concurrent build never sees half a file
 
 
 def load() -> ctypes.CDLL:
@@ -86,6 +91,8 @@ def load() -> ctypes.CDLL:
             lib.bp_blocked_launch.restype = ci
             lib.pairhmm_launch.argtypes = [vp] * 8 + [ci, ci, vp]
             lib.pairhmm_launch.restype = ci
+            lib.mea_dp_launch.argtypes = [vp] * 5 + [ci, ci, vp]
+            lib.mea_dp_launch.restype = ci
             lib.dna_cuda_error_string.argtypes = [ci]
             lib.dna_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

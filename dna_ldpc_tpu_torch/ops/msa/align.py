@@ -1,22 +1,23 @@
 """MUSCLE-v5-equivalent multiple sequence alignment (MPC pipeline).
 
-Port of the host pieces of ``dna_ldpc_tpu/ops/msa/align.py`` (EA
-distances, UPGMA5 join order, ``align()`` on its native path) and of
-``align_clusters`` in the configuration that runs the pair-HMM kernel and
-the consistency transform on the device and the progressive and refine
-stages in the host C++ aligner (the JAX package's ``_align_clusters_fused``
-flow, ``DNA_LDPC_DEVICE_MSA=0``):
+Port of ``dna_ldpc_tpu/ops/msa/align.py``: the host pieces (EA
+distances, UPGMA5 join order, ``align()`` on its native path) and
+``align_clusters`` in its two device configurations:
 
-1. all C(n,2) read pairs of every cluster go through the pair-HMM kernel
-   in batches sized from a byte budget; the posteriors stay on the device
-   in bf16 (the value set the JAX package's sparse transport carries) and
-   the EA scores come from the kernel;
-2. EA distances (EA = MEA-score / min(LX, LY), FixEADistMx) give each
-   cluster's UPGMA5 join order (biased linkage 0.1*avg + 0.9*min);
-3. clusters of n >= 3 get the consistency transform on the device, in
-   batches of equal-size clusters; each batch's transformed posteriors are
-   downloaded and its clusters' progressive alignment + refinement run in
-   native code on a thread pool while the device works on the next batch.
+- the default, ``_align_clusters_device``: the pair-HMM kernel, the
+  consistency transform, and the progressive joins and refinement
+  (``device_msa.py``, with the MEA-DP kernel) all on the device; only the
+  column maps leave it;
+- ``DNA_LDPC_DEVICE_MSA=0``, ``_align_clusters_fused``: the pair-HMM
+  kernel and the consistency transform on the device, the progressive and
+  refine stages in the host C++ aligner. The device flow also hands it the
+  clusters it does not take (more than 32 reads, column overflow).
+
+Common to both: all C(n,2) read pairs go through the pair-HMM kernel in
+batches sized from a byte budget, the posteriors stay on the device in
+bf16 (the value set the JAX package's transport carries), and the EA
+scores (EA = MEA-score / min(LX, LY), FixEADistMx) give each cluster's
+UPGMA5 join order (biased linkage 0.1*avg + 0.9*min).
 
 Output per cluster: [(input ordinal, aligned row)] in input order, the
 aligner interface of ``pipeline.llr``.
@@ -39,8 +40,14 @@ from .pairhmm_cuda import post_ea
 CONSISTENCY_ITERS = 2   # pairhmm.h:8
 REFINE_ITERS = 100      # pairhmm.h:9
 CONVERGE_AFTER = 5      # refinement stops after 5 unchanged iterations
-BUDGET_BYTES = 2 << 30  # device bytes one pair-HMM or consistency batch may use
+BUDGET_BYTES = 2 << 30  # device bytes one pair-HMM, consistency or MSA batch may use
 N_WORKERS = min(8, os.cpu_count() or 1)  # host aligner threads
+
+# clusters of >= 2 reads align_clusters was given, and of those the clusters
+# the device MSA handed to the host aligner (oversized or column overflow),
+# since the last reset
+msa_clusters = 0
+fallback_clusters = 0
 
 
 def cluster_pairs(n: int) -> list[tuple[int, int]]:
@@ -164,14 +171,193 @@ def align_clusters(
     device="cpu",
     timings: dict | None = None,
 ) -> list[list[tuple[int, str]]]:
-    """Align many clusters with the pair-HMM and consistency stages
-    batched across clusters on ``device`` (module docstring). Results
-    match per-cluster ``align()``. ``timings`` accumulates seconds under
-    "pairhmm" (kernel + EA download), "consistency" (transform + posterior
-    download) and "progressive_refine" (waiting for the host aligner after
-    the last batch)."""
+    """Align many clusters with the device stages batched across clusters
+    on ``device``. Results match per-cluster ``align()``.
+
+    The default is the fully device-resident MSA
+    (``_align_clusters_device``); ``DNA_LDPC_DEVICE_MSA=0`` selects the
+    flow that feeds the host C++ aligner (``_align_clusters_fused``), as
+    in the JAX package (``dna_ldpc_tpu/ops/msa/align.py:554-566``).
+    ``timings`` accumulates seconds per stage."""
+    global msa_clusters
     if timings is None:
         timings = {}
+    msa_clusters += sum(1 for seqs in clusters if len(seqs) >= 2)
+    if os.environ.get("DNA_LDPC_DEVICE_MSA", "1") != "0":
+        return _align_clusters_device(clusters, refine_iters, consistency_iters, seed, device, timings)
+    return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
+
+
+def _tick(timings: dict, key: str, t0: float) -> float:
+    now = time.time()
+    timings[key] = timings.get(key, 0.0) + (now - t0)
+    return now
+
+
+def _sync(dev: torch.device) -> None:
+    """Wait for the card, so that a stage's time is its own."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _pair_posteriors(xs: list[str], ys: list[str], Lmax: int, dev: torch.device):
+    """K2 over read pairs in batches sized from the byte budget. Returns
+    (posteriors [P, Lmax, Lmax] bf16 on ``dev`` — the value set the JAX
+    package's transport carries — and the EA scores [P] f32 numpy)."""
+    X, Y, lx, ly = encode_pairs(xs, ys, Lmax)
+    ntot = len(xs)
+    posts = torch.empty((ntot, Lmax, Lmax), dtype=torch.bfloat16, device=dev)
+    ea_all = np.zeros(ntot, np.float32)
+    # kernel bytes per pair: forward M-plane scratch + f32 posterior + bf16 copy
+    per_pair = (2 * Lmax + 1) * (Lmax + 1) * 4 + Lmax * Lmax * 6
+    chunk = max(1, BUDGET_BYTES // per_pair)
+    for lo in range(0, ntot, chunk):
+        hi = min(ntot, lo + chunk)
+        post, ea = post_ea(
+            torch.as_tensor(X[lo:hi], device=dev), torch.as_tensor(Y[lo:hi], device=dev),
+            torch.as_tensor(lx[lo:hi], device=dev), torch.as_tensor(ly[lo:hi], device=dev),
+            Lmax,
+        )
+        posts[lo:hi] = post.to(torch.bfloat16)
+        ea_all[lo:hi] = ea.cpu().numpy()
+        del post, ea
+    return posts, ea_all
+
+
+def _align_clusters_device(
+    clusters: list[list[str]],
+    refine_iters: int,
+    consistency_iters: int,
+    seed: int,
+    device,
+    timings: dict,
+) -> list[list[tuple[int, str]]]:
+    """Fully device-resident align_clusters (``dna_ldpc_tpu/ops/msa/
+    align.py:705-972``): the posteriors stay on the device from the
+    pair-HMM to the last refinement merge; only the column maps leave it.
+
+    1. clusters of 2..32 reads are grouped into the device-MSA buckets
+       (``device_msa.MSA_BUCKETS``), and K2 runs over every pair of them
+       (buckets ascending, clusters contiguous), posteriors kept in bf16;
+    2. EA distances give each cluster's UPGMA join order;
+    3. per batch of a bucket (its size from the byte budget),
+       ``assemble_transform`` gathers the pairs and applies the
+       consistency transform, and ``start_msa_batch`` runs every
+       progressive join and refinement iteration as batched merges.
+
+    Clusters larger than the top bucket, or whose alignment overflows the
+    device column budget, go through ``_align_clusters_fused`` (K2 and the
+    consistency transform on the device, the host C++ aligner).
+    ``timings`` keys: "pairhmm", "consistency" (assembly + transform),
+    "msa_device" (joins + merges), "msa_collect" (column-map download and
+    rows), plus the fallback flow's keys when it runs."""
+    global fallback_clusters
+    from .device_msa import MSA_BUCKETS, assemble_transform, cluster_bytes, start_msa_batch
+
+    dev = torch.device(device)
+    out: list = [None] * len(clusters)
+    fallback: list[int] = []
+    by_bucket: dict[int, list[int]] = {}
+    maxlen = 1
+    for c, seqs in enumerate(clusters):
+        n = len(seqs)
+        if n < 2:
+            out[c] = [(0, seqs[0])] if seqs else []
+        elif n > MSA_BUCKETS[-1]:
+            fallback.append(c)
+        else:
+            by_bucket.setdefault(next(b for b in MSA_BUCKETS if b >= n), []).append(c)
+            # only reads that reach the device set the padding
+            maxlen = max(maxlen, max(len(s) for s in seqs))
+    Lmax = padded_lmax(maxlen)
+    if Lmax > 254:  # the JAX package's column-map bound (uint8 transport)
+        return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
+
+    t0 = time.time()
+    span: dict[int, tuple[int, int]] = {}
+    xs: list[str] = []
+    ys: list[str] = []
+    for nb in sorted(by_bucket):
+        for c in by_bucket[nb]:
+            seqs = clusters[c]
+            lo = len(xs)
+            for i, j in cluster_pairs(len(seqs)):
+                xs.append(seqs[i])
+                ys.append(seqs[j])
+            span[c] = (lo, len(xs))
+    if xs:
+        posts, ea_all = _pair_posteriors(xs, ys, Lmax, dev)
+    _tick(timings, "pairhmm", t0)
+
+    for nb in sorted(by_bucket):
+        members = by_bucket[nb]
+        npair = nb * (nb - 1) // 2
+        slot_of = {pair: sl for sl, pair in enumerate(cluster_pairs(nb))}
+        C_cap = max(1, BUDGET_BYTES // cluster_bytes(nb, Lmax))
+        for mlo in range(0, len(members), C_cap):
+            batch = members[mlo : mlo + C_cap]
+            t0 = time.time()
+            ids = np.zeros(len(batch) * npair, np.int64)
+            mask = np.zeros(len(batch) * npair, bool)
+            inv_n = np.ones(len(batch), np.float32)
+            for bi, c in enumerate(batch):
+                n = len(clusters[c])
+                inv_n[bi] = 1.0 / n
+                for pi, pair in enumerate(cluster_pairs(n)):
+                    sl = bi * npair + slot_of[pair]
+                    ids[sl] = span[c][0] + pi
+                    mask[sl] = True
+            P = assemble_transform(
+                posts, torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev),
+                torch.as_tensor(inv_n, device=dev), nb, consistency_iters, len(batch), Lmax,
+            )
+            _sync(dev)
+            t0 = _tick(timings, "consistency", t0)
+
+            joins_list = [
+                upgma_join_order(_ea_dists(clusters[c], ea_all[span[c][0] : span[c][1]])) for c in batch
+            ]
+            job = start_msa_batch(
+                P, [clusters[c] for c in batch], joins_list, nb, Lmax, refine_iters, seed
+            )
+            del P
+            _sync(dev)
+            t0 = _tick(timings, "msa_device", t0)
+
+            rows_out, _ovf = job.collect()
+            for c, rows in zip(batch, rows_out):
+                if rows is None:
+                    fallback.append(c)
+                else:
+                    out[c] = rows
+            _tick(timings, "msa_collect", t0)
+    posts = None  # free the pair posteriors before the fallback computes its own
+
+    if fallback:
+        fallback_clusters += len(fallback)
+        rows = _align_clusters_fused(
+            [clusters[c] for c in fallback], refine_iters, consistency_iters, seed, device, timings
+        )
+        for c, r in zip(fallback, rows):
+            out[c] = r
+    return out
+
+
+def _align_clusters_fused(
+    clusters: list[list[str]],
+    refine_iters: int,
+    consistency_iters: int,
+    seed: int,
+    device,
+    timings: dict,
+) -> list[list[tuple[int, str]]]:
+    """The ``DNA_LDPC_DEVICE_MSA=0`` flow, counterpart of the JAX
+    package's ``_align_clusters_fused``: K2 over every pair and the
+    consistency transform on ``device`` (module docstring), the
+    progressive and refine stages in the host C++ aligner. ``timings``
+    keys: "pairhmm" (kernel + EA download), "consistency" (transform +
+    posterior download) and "progressive_refine" (waiting for the host
+    aligner after the last batch)."""
     dev = torch.device(device)
     out: list = [None] * len(clusters)
     multi = []
@@ -196,32 +382,17 @@ def align_clusters(
             ys.append(seqs[j])
         span[c] = (lo, len(xs))
     Lmax = padded_lmax(max(len(s) for s in xs + ys))
-    X, Y, lx_all, ly_all = encode_pairs(xs, ys, Lmax)
-    ntot = len(xs)
-    posts = torch.empty((ntot, Lmax, Lmax), dtype=torch.bfloat16, device=dev)
-    ea_all = np.zeros(ntot, np.float32)
-    # kernel bytes per pair: forward M-plane scratch + f32 posterior + bf16 copy
-    per_pair = (2 * Lmax + 1) * (Lmax + 1) * 4 + Lmax * Lmax * 6
-    chunk = max(1, BUDGET_BYTES // per_pair)
-    for lo in range(0, ntot, chunk):
-        hi = min(ntot, lo + chunk)
-        post, ea = post_ea(
-            torch.as_tensor(X[lo:hi], device=dev), torch.as_tensor(Y[lo:hi], device=dev),
-            torch.as_tensor(lx_all[lo:hi], device=dev), torch.as_tensor(ly_all[lo:hi], device=dev),
-            Lmax,
-        )
-        posts[lo:hi] = post.to(torch.bfloat16)
-        ea_all[lo:hi] = ea.cpu().numpy()
-        del post, ea
-    timings["pairhmm"] = timings.get("pairhmm", 0.0) + (time.time() - t0)
+    posts, ea_all = _pair_posteriors(xs, ys, Lmax, dev)
+    t0 = _tick(timings, "pairhmm", t0)
 
     # ---- 2-3. EA distances, consistency batches, host aligner -----------
-    t0 = time.time()
     futures = {}
 
     def crops(c, mats):
         lo, _ = span[c]
-        return [mats[k, : lx_all[lo + k], : ly_all[lo + k]] for k in range(len(mats))]
+        return [
+            mats[k, : len(xs[lo + k]), : len(ys[lo + k])] for k in range(len(mats))
+        ]
 
     def submit(pool, c, pair_posts):
         lo, hi = span[c]
@@ -254,9 +425,8 @@ def align_clusters(
                 res = consistency_core(mats, inv_n, n, consistency_iters).cpu().numpy()
                 for bi, c in enumerate(batch):
                     submit(pool, c, crops(c, res[bi]))
-        timings["consistency"] = timings.get("consistency", 0.0) + (time.time() - t0)
-        t0 = time.time()
+        t0 = _tick(timings, "consistency", t0)
         for c, fut in futures.items():
             out[c] = fut.result()
-    timings["progressive_refine"] = timings.get("progressive_refine", 0.0) + (time.time() - t0)
+    _tick(timings, "progressive_refine", t0)
     return out

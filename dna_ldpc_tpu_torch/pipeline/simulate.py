@@ -2,11 +2,11 @@
 pool for end-to-end runs.
 
 Carried from ``dna_ldpc_tpu/pipeline/simulate.py`` as numpy code: the
-channel model and ``simulate_reads``. Calibration against shipped quality
-files is not ported. Sample oligos with a coverage distribution, apply
-substitution/insertion/deletion noise per base, and emit one quality
-character per read (the reference's quality files carry exactly one char
-per read, decoder.py:54,90).
+channel model, ``load_oligos`` and ``simulate_reads``. Calibration
+against shipped quality files is not ported. Sample oligos with a
+coverage distribution, apply substitution/insertion/deletion noise per
+base, and emit one quality character per read (the reference's quality
+files carry exactly one char per read, decoder.py:54,90).
 """
 
 from __future__ import annotations
@@ -35,6 +35,11 @@ class ChannelModel:
     q_high: int = 70
     q_low: int = 40
     p_low_quality: float = 0.05
+
+
+def load_oligos(path: str) -> list[str]:
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
 
 
 def simulate_reads(

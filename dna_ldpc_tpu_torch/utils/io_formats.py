@@ -1,6 +1,8 @@
-"""Carried from ``dna_ldpc_tpu/utils/io_formats.py`` as numpy code: only
-the sparse GF(2) matrix container the code construction needs. The file
-codecs (pchk, alist, FASTA/FASTQ, .mat) are not on the port's path yet.
+"""Carried from ``dna_ldpc_tpu/utils/io_formats.py`` as numpy code: the
+sparse GF(2) matrix container the code construction needs, and the
+one-line numeric and line-per-read text files the CLI reads and writes.
+The other codecs (pchk, alist, FASTA/FASTQ, .mat) are not on the port's
+path yet.
 """
 
 from __future__ import annotations
@@ -92,3 +94,43 @@ class SparseBinaryMatrix:
             and np.array_equal(self.indptr, other.indptr)
             and np.array_equal(self.indices, other.indices)
         )
+
+
+# ---------------------------------------------------------------------------
+# One-line numeric files (codeword / soft LLR) — def_func.py:29-57
+# ---------------------------------------------------------------------------
+
+
+def read_vector(path: str, dtype=np.int64) -> np.ndarray:
+    """Read a single-line space-separated numeric file (codeword or soft
+    file). Mirrors ``file_read`` int/float mode, which returns the first
+    line only (def_func.py:40-43)."""
+    with open(path) as f:
+        line = f.readline()
+    return np.array(line.split(), dtype=dtype)
+
+
+def write_vector(path: str, values, fmt: str | None = None) -> None:
+    """Write values as a single line of space-separated entries with a
+    trailing space, byte-identical to ``write_codeword``
+    (def_func.py:54-57) given matching string formatting."""
+    values = np.asarray(values)
+    if fmt is None:
+        conv = (lambda v: repr(float(v))) if values.dtype.kind == "f" else str
+    else:
+        conv = lambda v: fmt % v
+    with open(path, "w") as f:
+        for v in values.tolist():
+            f.write(conv(v) + " ")
+
+
+def read_lines(path: str) -> list[str]:
+    """str-mode file_read: all lines, newline-stripped (def_func.py:38-39)."""
+    with open(path) as f:
+        return [line.rstrip("\n") for line in f]
+
+
+def write_lines(path: str, lines) -> None:
+    with open(path, "w") as f:
+        for line in lines:
+            f.write(str(line) + "\n")

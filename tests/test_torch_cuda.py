@@ -10,7 +10,9 @@ Without a CUDA device every test skips. Tolerances: K1 is bit-equal to
 its twin (same rounding points, same summation order, the same libdevice
 tanh/log); K2's posteriors agree within atol = rtol = 1e-4 and its EA
 score equals the native ``mea_score`` of its own bf16-rounded posterior;
-edit distances are integers (bit-equal)."""
+the MEA-DP kernel's codes and positions are bit-equal to its twin's (one
+f32 add per cell, exact compares); edit distances are integers
+(bit-equal); the device MSA gives the CPU's rows."""
 
 import numpy as np
 import pytest
@@ -20,8 +22,10 @@ from dna_ldpc_tpu_torch import native_lib
 from dna_ldpc_tpu_torch.models import BlockedCode, build_rs_ldpc, dna_storage_blocked
 from dna_ldpc_tpu_torch.ops import bp_cuda
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
-from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
-from dna_ldpc_tpu_torch.ops.msa.align import align_clusters, mea_score
+from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, pairhmm_cuda
+from dna_ldpc_tpu_torch.ops.msa.align import (
+    _ea_dists, _pair_posteriors, align_clusters, cluster_pairs, mea_score, upgma_join_order,
+)
 from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_core
 from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
 from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
@@ -132,9 +136,10 @@ def test_edit_distance_device_matches_native(dev):
     np.testing.assert_array_equal(got, native_lib.edit_distance_batch_native(buf, offs, lens, a, b))
 
 
-def test_consistency_and_align_clusters_on_device(dev):
+def test_consistency_and_align_clusters_on_device(dev, monkeypatch):
     """The consistency transform in full f32 on the card matches the CPU
-    within 1e-5; align_clusters on the card gives the CPU's rows."""
+    within 1e-5; align_clusters on the card gives the CPU's rows, through
+    the device MSA and through the host-aligner flow."""
     rng = np.random.default_rng(5)
     x = (rng.random((4, 10, 40, 40)) * (rng.random((4, 10, 40, 40)) < 0.1)).astype(np.float32)
     inv = torch.full((4,), 0.2)
@@ -142,4 +147,62 @@ def test_consistency_and_align_clusters_on_device(dev):
     torch.testing.assert_close(got, consistency_core(torch.from_numpy(x), inv, 5, 2), atol=1e-5, rtol=0)
 
     clusters = [_copies(rng, n) for n in (2, 3, 5, 4, 1)]
-    assert align_clusters(clusters, refine_iters=10, device=dev) == align_clusters(clusters, refine_iters=10)
+    want = align_clusters(clusters, refine_iters=10)
+    assert align_clusters(clusters, refine_iters=10, device=dev) == want
+    monkeypatch.setenv("DNA_LDPC_DEVICE_MSA", "0")
+    assert align_clusters(clusters, refine_iters=10, device=dev) == want
+
+
+@pytest.mark.parametrize("Cmax,kind", [(24, "quantised"), (192, "random"), (192, "quantised"), (286, "random")])
+def test_mea_kernel_matches_twin(dev, Cmax, kind):
+    """Random and few-valued (exact-tie) planes, widths 0 and Cmax included;
+    Cmax = 286 is the largest the device MSA makes (164 KB of codes)."""
+    rng = np.random.default_rng(Cmax)
+    C = 48
+    post = rng.random((C, Cmax, Cmax)).astype(np.float32)
+    if kind == "quantised":
+        post = (rng.integers(0, 3, (C, Cmax, Cmax)) * 0.5).astype(np.float32)
+    wA = rng.integers(0, Cmax + 1, C).astype(np.int32)
+    wB = rng.integers(0, Cmax + 1, C).astype(np.int32)
+    wA[:3], wB[:3] = (0, Cmax, Cmax), (Cmax, 0, Cmax)
+    args = [torch.from_numpy(a).to(dev) for a in (post, wA, wB)]
+    before = mea_cuda.launches
+    codes, pos = mea_cuda.mea_walk(*args, Cmax)
+    codes_r, pos_r = mea_cuda.mea_walk_ref(*args, Cmax)
+    torch.cuda.synchronize()
+    assert mea_cuda.launches == before + 1
+    assert torch.equal(codes, codes_r) and torch.equal(pos, pos_r)
+
+
+def test_run_msa_batch_on_device(dev):
+    """One bucket-8 batch of the device MSA on the card gives the CPU's rows
+    and overflow flags, through the MEA-DP kernel."""
+    rng = np.random.default_rng(9)
+    nb, Lmax = 8, 160
+    clusters = [_copies(rng, n) for n in (3, 5, 8, 4, 6, 7, 8, 5)]
+    slot = {pair: k for k, pair in enumerate(cluster_pairs(nb))}
+    xs, ys, ids, joins = [], [], [], []
+    for c, seqs in enumerate(clusters):
+        lo = len(xs)
+        for i, j in cluster_pairs(len(seqs)):
+            xs.append(seqs[i])
+            ys.append(seqs[j])
+        ids.append((c, lo, len(seqs)))
+    posts, ea = _pair_posteriors(xs, ys, Lmax, torch.device("cpu"))
+    flat = np.zeros(len(clusters) * len(slot), np.int64)
+    mask = np.zeros(len(flat), bool)
+    inv_n = np.ones(len(clusters), np.float32)
+    for c, lo, n in ids:
+        inv_n[c] = 1.0 / n
+        joins.append(upgma_join_order(_ea_dists(clusters[c], ea[lo : lo + n * (n - 1) // 2])))
+        for p, pair in enumerate(cluster_pairs(n)):
+            flat[c * len(slot) + slot[pair]] = lo + p
+            mask[c * len(slot) + slot[pair]] = True
+    P = device_msa.assemble_transform(
+        posts, torch.from_numpy(flat), torch.from_numpy(mask), torch.from_numpy(inv_n), nb, 2, len(clusters), Lmax
+    )
+    before = mea_cuda.launches
+    got, ovf = device_msa.run_msa_batch(P.to(dev), clusters, joins, nb, Lmax, 100, 0)
+    assert mea_cuda.launches > before
+    want, want_ovf = device_msa.run_msa_batch(P, clusters, joins, nb, Lmax, 100, 0)
+    assert got == want and np.array_equal(ovf, want_ovf) and not ovf.any()

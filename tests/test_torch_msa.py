@@ -3,7 +3,9 @@
 products, summed in another order), and the port's ``align_clusters``
 and ``align`` against the JAX package's ``_align_clusters_fused`` (its
 ``DNA_LDPC_DEVICE_MSA=0`` configuration, with the Pallas pair-HMM in
-interpret mode) and per-cluster ``align()``. Aligned rows must be equal."""
+interpret mode) and per-cluster ``align()``. Aligned rows must be equal.
+Without ``DNA_LDPC_DEVICE_MSA=0`` the port runs its device MSA, which
+must give the same rows."""
 
 import numpy as np
 import pytest
@@ -59,6 +61,7 @@ def test_upgma_join_order_matches_jax():
 
 def test_align_clusters_matches_jax_fused_and_align(monkeypatch):
     monkeypatch.setenv("DNA_LDPC_PAIRHMM", "pallas")
+    monkeypatch.setenv("DNA_LDPC_DEVICE_MSA", "0")  # the host-aligner flow
     clusters = _clusters(9, (1, 2, 3, 5, 6, 4, 3, 2), 30)
     fused = _align_clusters_fused(
         clusters, refine_iters=10, consistency_iters=2, seed=0, pair_chunk=160, n_workers=2

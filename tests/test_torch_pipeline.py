@@ -2,8 +2,9 @@
 fabricated full-size trial (272 codewords of the deployed code, 18,432
 strands), and the port's ``anneal_decode`` against the JAX one on the
 tiny failing case of tests/test_pipeline_e2e.py. LLR tables are compared
-bit for bit; failure lists, annealing rounds and decoded bits must be
-equal."""
+bit for bit (the port's mixed-length clusters through its device MSA, the
+JAX package's on the CPU through its host aligner); failure lists,
+annealing rounds and decoded bits must be equal."""
 
 import os
 import sys
@@ -77,7 +78,10 @@ def test_decode_trial_matches_jax(trial, tmp_path):
     assert got.n_reads_kept == want.n_reads_kept == len(reads)
     np.testing.assert_array_equal(got.decoded_bits, want.decoded_bits)
     np.testing.assert_array_equal(got.decoded_bits, cws)
-    for key in ("rs_decode", "llr", "llr_pairhmm", "llr_consistency", "first_decode", "second_decode"):
+    for key in (
+        "rs_decode", "llr", "llr_pairhmm", "llr_consistency", "llr_msa_device", "llr_msa_collect",
+        "first_decode", "second_decode",
+    ):
         assert key in got.phase_times
     # a second run resumes from the checkpoint: ingest and first decode skipped
     again = t_decode.decode_trial(reads, quals, cws, t_decode.TrialConfig(), checkpoint_path=tp)
