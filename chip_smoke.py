@@ -34,10 +34,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    codes and positions bit-equal;
 8. the same trial once more through the command line,
    ``python -m dna_ldpc_tpu_torch.cli simulate``, on codeword and oligo
-   files written to a temporary directory in the reference's formats.
+   files written to a temporary directory in the reference's formats;
+9. the code simulator (``ops/simulation.py``) on the card, on the deployed
+   code: (a) the ``bp`` FER waterfall over Eb/No 3.75-4.5 dB through K1
+   (its launches reset just before and read just after; FER must not rise
+   with Eb/No, must be above 0 at the lowest point and below that at the
+   highest), (b) the same points with ``min_sum`` on the gather path,
+   (c) K1 against its twin on one simulator batch at 4.25 dB, early-stopped
+   and in fixed-work mode (``early_stop=False``), both equal to the twin's
+   and to each other word for word, (d) one point each of quantized
+   min-sum/AWGN, Gallager B/BSC, threshold FAID/BSC and peeling/BEC, each
+   also equal to the same decoder on the CPU on 8 frames, then a LUT FAID
+   on the 192 x 2048 column-weight-3 RS-LDPC code, (e) error cases saved on
+   the card replayed there bit for bit, (f) the code-construction CLI:
+   ``rs-ldpc 8 72 8``, ``alist-to-pchk``, ``pchk-to-alist`` (alist back
+   byte-equal), ``make-gen`` and ``encode`` of four messages, whose
+   codewords must satisfy the pchk. It prints each decoder's ms per
+   iteration at a batch of 32 and at its full batch, and K1's codewords
+   per second with and without early stop.
 
 The line before the last is a JSON object with each kernel's launches on
-the trial of phase 5, error against its twin, and time beside the twin's;
+the trial of phase 5 (K1: plus the waterfall of phase 9a), error against
+its twin, and time beside the twin's;
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -54,6 +72,16 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# Phase 9. Batches are sized from the card's memory, not the TPU default:
+# one f32 edge tensor of the deployed code is 147,456 x B x 4 bytes (0.3 GB
+# at B = 512), and the gather decoders hold about six of them.
+SIM_EBNO = [3.75, 4.0, 4.25, 4.5]
+BP_BATCH, BP_MAX_FRAMES = 1024, 32768
+ZOO_BATCH, ZOO_MAX_FRAMES = 512, 2048
+SMALL_BATCH = 32  # per-iteration times here and at full batch: launch- or memory-bound
+ZOO_POINTS = [("quantized_min_sum", "awgn", 4.75), ("gallager_b", "bsc", 0.005), ("faid", "bsc", 0.003),
+              ("bec", "bec", 0.055)]
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -89,6 +117,190 @@ def _noisy_pairs(rng, n: int):
     """Read pairs of one strand each."""
     pairs = [_strand_reads(rng, 2) for _ in range(n)]
     return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def _same(a, b, what: str) -> None:
+    """Two BpResults equal field by field, or raise."""
+    import torch
+
+    for name in ("bits", "success", "unsat", "iterations"):
+        if not torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def _point_line(r) -> str:
+    return (f"{r.param:g}: {r.frame_errors}/{r.frames} frames wrong (FER {r.fer:.4f}), bit errors {r.bit_errors}, "
+            f"undetected {r.undetected_errors}, mean iterations {r.mean_iters:.2f}, {r.seconds:.2f} s")
+
+
+def _simulator_phase(dev) -> int:
+    """Phase 9 (see the module docstring). Returns K1's launches in the
+    bp waterfall."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch import cli
+    from dna_ldpc_tpu_torch.models.ldpc_graph import LdpcGraph
+    from dna_ldpc_tpu_torch.models.mod2 import random_codewords
+    from dna_ldpc_tpu_torch.models.rs_ldpc import build_rs_ldpc, dna_storage_pchk
+    from dna_ldpc_tpu_torch.ops import bp_cuda
+    from dna_ldpc_tpu_torch.ops import simulation as sim
+    from dna_ldpc_tpu_torch.ops.channels import bsc_flips
+    from dna_ldpc_tpu_torch.ops.faid import faid_decode, lut_rule
+    from dna_ldpc_tpu_torch.pipeline.decode import deployed_graph
+    from dna_ldpc_tpu_torch.utils.io_formats import read_pchk
+
+    H, graph = dna_storage_pchk(), deployed_graph()
+    rate = (H.n_cols - H.n_rows) / H.n_cols
+    cfg_bp = sim.SimConfig(decoder="bp", channel="awgn", max_iter=50, batch=BP_BATCH, target_frame_errors=50,
+                           max_frames=BP_MAX_FRAMES, device=str(dev))
+
+    # (a) the bp waterfall through K1
+    bp_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res_bp = sim.run_simulation(H, SIM_EBNO, cfg_bp, n_codewords=64, graph=graph)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    k1_launches = bp_cuda.launches
+    for r in res_bp:
+        print(f"[9a] bp AWGN Eb/No {_point_line(r)}")
+    fer = [r.fer for r in res_bp]
+    print(f"[9a] run_simulation wall {wall:.2f} s (64 random codewords drawn on the host included), "
+          f"batch {BP_BATCH}, K1 launches {k1_launches}")
+    if k1_launches == 0:
+        raise AssertionError("the bp waterfall never launched K1")
+    if any(b > a for a, b in zip(fer, fer[1:])) or not fer[0] > 0 or not fer[-1] < fer[0]:
+        raise AssertionError(f"bp FER does not fall with Eb/No: {fer}")
+
+    # the codewords run_simulation drew, for the steps below
+    cws = random_codewords(H.to_dense(), 64, np.random.default_rng(cfg_bp.seed))
+    cw_dev = torch.as_tensor(cws, device=dev)
+
+    def batch_of(cfg, param, batch_index=0, rows=None):
+        """Channel output of the simulator's batch ``batch_index`` (or of
+        ``rows`` frames drawn by its generator)."""
+        idx = (torch.arange(rows or cfg.batch, device=dev) + batch_index * cfg.batch) % len(cws)
+        return sim._apply_channel(cfg, cw_dev[idx], sim.batch_generator(cfg.seed, batch_index, dev), param, rate)
+
+    def ms_per_iteration(cfg, g, param) -> float:
+        """One batch decoded twice; the second timed, over the loop's passes."""
+        rx = batch_of(cfg, param)
+        sim._decode(cfg, g, rx)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = sim._decode(cfg, g, rx)
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3 / max(int(res.iterations.max()), 1)
+
+    # (b) the same points with min-sum on the gather path
+    cfg_ms = dataclasses.replace(cfg_bp, decoder="min_sum", batch=ZOO_BATCH, max_frames=ZOO_MAX_FRAMES)
+    before = bp_cuda.launches
+    res_ms = [sim.simulate_point(H, graph, cws, p, cfg_ms, rate) for p in SIM_EBNO]
+    for r in res_ms:
+        print(f"[9b] min_sum AWGN Eb/No {_point_line(r)}")
+    if bp_cuda.launches != before:
+        raise AssertionError("min-sum launched the BP kernel")
+    if any(b.fer > a.fer for a, b in zip(res_ms, res_ms[1:])):
+        raise AssertionError(f"min-sum FER rises with Eb/No: {[r.fer for r in res_ms]}")
+
+    # (c) K1 against its twin on one simulator batch, both modes
+    llr = batch_of(cfg_bp, 4.25)
+    blocked = graph.blocked
+    k_es = bp_cuda.bp_decode_blocked(blocked, llr, 50)
+    k_fw = bp_cuda.bp_decode_blocked(blocked, llr, 50, early_stop=False)
+    r_es = bp_cuda.bp_decode_blocked_ref(blocked, llr, 50)
+    r_fw = bp_cuda.bp_decode_blocked_ref(blocked, llr, 50, early_stop=False)
+    torch.cuda.synchronize()
+    _same(k_es, r_es, "K1 vs twin (early stop)")
+    _same(k_fw, r_fw, "K1 vs twin (fixed work)")
+    _same(k_fw, k_es, "K1 fixed work vs early stop")
+    ms_es = _cuda_ms(lambda: bp_cuda.bp_decode_blocked(blocked, llr, 50), 3)
+    ms_fw = _cuda_ms(lambda: bp_cuda.bp_decode_blocked(blocked, llr, 50, early_stop=False), 3)
+    n_fail = int((~k_es.success).sum())
+    print(f"[9c] K1 vs twin on a {BP_BATCH}-frame simulator batch at 4.25 dB ({n_fail} frames fail, mean iterations "
+          f"{k_es.iterations.float().mean().item():.2f}): early stop and fixed work both equal to the twin and to "
+          f"each other; K1 {ms_es:.3f} ms ({BP_BATCH * 1e3 / ms_es:.0f} cw/s) early-stopped, {ms_fw:.3f} ms "
+          f"({BP_BATCH * 1e3 / ms_fw:.0f} cw/s, {ms_fw / 50:.3f} ms per iteration) fixed work of 50 iterations")
+    k1_small = _cuda_ms(lambda: bp_cuda.bp_decode_blocked(blocked, llr[:SMALL_BATCH], 50, early_stop=False), 3)
+    per_iter = [f"bp (K1) {k1_small / 50:.3f} / {ms_fw / 50:.3f}"]
+    for decoder, channel, param in [("min_sum", "awgn", 4.25)] + ZOO_POINTS:
+        cfg = dataclasses.replace(cfg_ms, decoder=decoder, channel=channel)
+        small = ms_per_iteration(dataclasses.replace(cfg, batch=SMALL_BATCH), graph, param)
+        per_iter.append(f"{decoder} {small:.3f} / {ms_per_iteration(cfg, graph, param):.3f}")
+    print(f"[9c] ms per iteration on the deployed code at batch {SMALL_BATCH} / batch {ZOO_BATCH} "
+          f"(K1: {BP_BATCH}, fixed work): " + "; ".join(per_iter))
+
+    # (d) one point of each other decoder and channel, equal to the CPU on 8 frames
+    for decoder, channel, param in ZOO_POINTS:
+        cfg = dataclasses.replace(cfg_ms, decoder=decoder, channel=channel)
+        r = sim.simulate_point(H, graph, cws, param, cfg, rate)
+        rx = batch_of(cfg, param, rows=8)
+        _same(sim._decode(cfg, graph, rx), sim._decode(cfg, graph, rx.cpu()), f"{decoder} on the card vs the CPU")
+        print(f"[9d] {decoder} {channel.upper()} at {_point_line(r)}; 8 frames equal to the CPU's")
+        if decoder == "bec" and r.undetected_errors:
+            raise AssertionError("peeling reported success on a wrong word")
+    H6 = build_rs_ldpc(6, 32, 3)
+    if set(H6.col_weights().tolist()) != {3}:
+        raise AssertionError("the LUT FAID code must have every column of weight 3")
+    g6 = LdpcGraph.from_sparse(H6)
+    cw6 = torch.as_tensor(random_codewords(H6.to_dense(), 256, np.random.default_rng(7)), device=dev)
+    hard = bsc_flips(sim.batch_generator(7, 0, dev), cw6, 0.003)
+    lut = faid_decode(g6, hard, 50, lut_rule())
+    _same(lut, faid_decode(g6, hard.cpu(), 50, lut_rule()), "LUT FAID on the card vs the CPU")
+    print(f"[9d] LUT FAID (planjery7_t2) on the {H6.n_rows} x {H6.n_cols} column-weight-3 code, BSC 0.003: "
+          f"{int((lut.bits != cw6).any(1).sum())}/256 frames wrong, mean iterations "
+          f"{lut.iterations.float().mean().item():.2f}; equal to the CPU's")
+
+    # (e) error cases saved on the card replay there bit for bit
+    cfg_e = dataclasses.replace(cfg_bp, batch=256, target_frame_errors=1, max_frames=256, save_error_cases=3)
+    r = sim.simulate_point(H, graph, cws, 4.0, cfg_e, rate)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        path = os.path.join(d, "cases.json")
+        sim.save_error_cases(path, [r])
+        cases = sim.load_error_cases(path)
+    if not cases:
+        raise AssertionError("no error case saved at 4.0 dB")
+    for case in cases:
+        seed, bi = case.key_data
+        rx_full = batch_of(cfg_e, case.param, bi)
+        full = sim._decode(cfg_e, graph, rx_full)
+        res, cw, rx = sim.replay_error_case(H, graph, cws, case, cfg_e)
+        if seed != cfg_e.seed or case.device != dev.type or not np.array_equal(rx, rx_full[case.slot].cpu().numpy()):
+            raise AssertionError("replayed channel output differs")
+        for name in ("bits", "success", "unsat", "iterations"):
+            if not torch.equal(getattr(res, name)[0], getattr(full, name)[case.slot]):
+                raise AssertionError(f"replayed {name} differs")
+        if not (res.bits[0].cpu().numpy() != cw).any():
+            raise AssertionError("a replayed error case decoded correctly")
+    print(f"[9e] replay: {len(cases)} error cases saved on the card at 4.0 dB replayed bit for bit "
+          f"(channel output, bits, unsat, iterations)")
+
+    # (f) the code-construction CLI round trip
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        f = lambda name: os.path.join(d, name)
+        t0 = time.time()
+        for argv in (["rs-ldpc", "8", "72", "8", f("code.alist")], ["alist-to-pchk", f("code.alist"), f("code.pchk")],
+                     ["pchk-to-alist", f("code.pchk"), f("back.alist")], ["make-gen", f("code.pchk"), f("gen.npz")]):
+            if cli.main(argv) != 0:
+                raise AssertionError(f"CLI {argv[0]} failed")
+        with open(f("code.alist"), "rb") as a, open(f("back.alist"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("alist -> pchk -> alist is not byte-equal")
+        k = len(np.load(f("gen.npz"))["info_cols"])
+        np.savetxt(f("msgs.txt"), np.random.default_rng(9).integers(0, 2, (4, k)), fmt="%d")
+        if cli.main(["encode", f("code.pchk"), f("msgs.txt"), f("cw.txt")]) != 0:
+            raise AssertionError("CLI encode failed")
+        cw = np.loadtxt(f("cw.txt"), dtype=np.uint8, ndmin=2)
+        Hf = read_pchk(f("code.pchk"))
+        if cw.shape != (4, Hf.n_cols) or Hf.mulvec(cw).any():
+            raise AssertionError("encoded codewords do not satisfy the pchk")
+    print(f"[9f] CLI rs-ldpc 8 72 8 -> alist-to-pchk -> pchk-to-alist (byte-equal) -> make-gen (k = {k}) -> "
+          f"encode of 4 messages: codewords satisfy the {Hf.n_rows} x {Hf.n_cols} pchk; {time.time() - t0:.2f} s")
+    return k1_launches
 
 
 def main() -> int:
@@ -339,9 +551,12 @@ def main() -> int:
     print(f"[8] CLI simulate: exit 0 in {cli_s:.2f} s (process included); report {report}; "
           f"{proc.stdout.strip().splitlines()[-1]}")
 
+    # ---- 9. the code simulator on the card ----------------------------------
+    k1_sim_launches = _simulator_phase(dev)
+
     kernels = [
         {"name": "bp_blocked", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/bp_blocked.cu",
-         "replaces": "dna_ldpc_tpu/ops/bp_pallas.py:55", "launches": launches["bp_blocked"],
+         "replaces": "dna_ldpc_tpu/ops/bp_pallas.py:55", "launches": launches["bp_blocked"] + k1_sim_launches,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
         {"name": "pairhmm", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/pairhmm.cu",
          "replaces": "dna_ldpc_tpu/ops/msa/pairhmm_pallas.py:114",

@@ -1,11 +1,15 @@
 """Command-line interface of the port: the ``decode`` and ``simulate``
 subcommands of ``dna_ldpc_tpu/cli.py``, with the same arguments and report
-files, plus ``--device`` (default ``cuda``):
+files, plus ``--device`` (default ``cuda``), and its five host-only
+code-construction tools (``rs-ldpc``, ``alist-to-pchk``, ``pchk-to-alist``,
+``make-gen``, ``encode``) with the same arguments and output files:
 
     python -m dna_ldpc_tpu_torch.cli decode --rs 72000 --start 0 --end 10 \\
         --epsil 0.02 --data-dir <dir with 72000_RS_<t>.txt / _Q_<t>.txt> \\
         --codeword-dir <dir with codeword_n18432_m1860_*.txt>
     python -m dna_ldpc_tpu_torch.cli simulate --oligos final_DNA.txt ...
+    python -m dna_ldpc_tpu_torch.cli rs-ldpc 8 72 8 code.alist
+    python -m dna_ldpc_tpu_torch.cli encode code.pchk messages.txt codewords.txt
 
 ``decode`` reads per-trial read/quality files, ``simulate`` draws trials
 from an oligo pool; both decode each trial on ``--device`` and write
@@ -124,7 +128,104 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--del-rate", type=float, default=_ch.deletion)
     s.add_argument("--seed", type=int, default=0)
     s.set_defaults(fn=cmd_simulate)
+
+    # --- standalone code-construction / format tools ------------------------
+    # (RS_LDPC.exe, alist-to-pchk.cpp, make_gen.cpp equivalents)
+    r = sub.add_parser("rs-ldpc", help="construct an RS-LDPC alist (RS_LDPC.exe)")
+    r.add_argument("s", type=int, help="field exponent (GF(2^s))")
+    r.add_argument("rho", type=int, help="row weight")
+    r.add_argument("gamma", type=int, help="column weight")
+    r.add_argument("out", help="output .alist path")
+    r.set_defaults(fn=cmd_rs_ldpc)
+
+    a2p = sub.add_parser("alist-to-pchk", help="convert alist to binary pchk")
+    a2p.add_argument("alist")
+    a2p.add_argument("pchk")
+    a2p.set_defaults(fn=cmd_alist_to_pchk)
+
+    p2a = sub.add_parser("pchk-to-alist", help="convert binary pchk to alist")
+    p2a.add_argument("pchk")
+    p2a.add_argument("alist")
+    p2a.set_defaults(fn=cmd_pchk_to_alist)
+
+    mg = sub.add_parser("make-gen", help="build a generator from a pchk (make_gen)")
+    mg.add_argument("pchk")
+    mg.add_argument("gen", help="output .npz generator")
+    mg.add_argument("--method", choices=["sparse", "dense", "mixed"], default="sparse")
+    mg.set_defaults(fn=cmd_make_gen)
+
+    e = sub.add_parser("encode", help="systematically encode messages (enc)")
+    e.add_argument("pchk")
+    e.add_argument("messages", help="text file: one space-separated message per line")
+    e.add_argument("out", help="output codeword file")
+    e.add_argument("--method", choices=["sparse", "dense", "mixed"], default="sparse")
+    e.set_defaults(fn=cmd_encode)
     return p
+
+
+def cmd_rs_ldpc(args) -> int:
+    from .models.rs_ldpc import build_rs_ldpc
+    from .utils.io_formats import write_alist
+
+    H = build_rs_ldpc(args.s, args.rho, args.gamma)
+    write_alist(args.out, H)
+    print(f"wrote {H.n_rows} x {H.n_cols} alist ({H.nnz} edges) -> {args.out}")
+    return 0
+
+
+def cmd_alist_to_pchk(args) -> int:
+    from .utils.io_formats import read_alist, write_pchk
+
+    write_pchk(args.pchk, read_alist(args.alist))
+    return 0
+
+
+def cmd_pchk_to_alist(args) -> int:
+    from .utils.io_formats import read_pchk, write_alist
+
+    write_alist(args.alist, read_pchk(args.pchk))
+    return 0
+
+
+def cmd_make_gen(args) -> int:
+    from .models.sparse_lu import lu_decompose
+    from .utils.io_formats import read_pchk
+
+    H = read_pchk(args.pchk)
+    lu = lu_decompose(H)
+    np.savez_compressed(
+        args.gen,
+        method=args.method,
+        n=lu.n,
+        rank=lu.rank,
+        pivot_cols=lu.pivot_cols,
+        info_cols=lu.info_cols,
+        l_ops=lu.l_ops,
+        u_rows=np.array(
+            [len(r) for r in lu.u_rows] + [v for r in lu.u_rows for v in r],
+            dtype=np.int64,
+        ),
+        B_packed=lu.B_packed,
+        row_order=lu.row_order,
+        dependent_rows=lu.dependent_rows,
+    )
+    print(f"generator: n={lu.n} k={len(lu.info_cols)} rank={lu.rank} -> {args.gen}")
+    return 0
+
+
+def cmd_encode(args) -> int:
+    from .models.sparse_lu import dense_encode, lu_decompose, sparse_encode
+    from .utils.io_formats import read_pchk
+
+    H = read_pchk(args.pchk)
+    msgs = np.loadtxt(args.messages, dtype=np.uint8, ndmin=2)
+    if args.method == "dense":
+        cw = dense_encode(H, msgs)
+    else:
+        cw = sparse_encode(lu_decompose(H), msgs)
+    np.savetxt(args.out, cw, fmt="%d")
+    print(f"encoded {len(msgs)} messages -> {args.out}")
+    return 0
 
 
 def main(argv=None) -> int:

@@ -3,9 +3,12 @@
 // dna_ldpc_tpu/ops/bp_pallas.py::_bp_kernel.
 //
 // Design. One thread block decodes one codeword and runs its own
-// early-stopped iteration loop; the block exits at its first zero
+// iteration loop; with early_stop the block exits at its first zero
 // syndrome, which gives the same latched bits/unsat/iterations as the TPU
 // kernel's 64-codeword chunks (their results also latch per codeword).
+// Without it (the TPU kernel's fixed-work mode) every block runs max_iter
+// iterations and latches bits, unsat and iterations at its first zero
+// syndrome, so both modes return the same words; only the work differs.
 // One thread per check of the current coset (q threads). Per codeword:
 //   - the f32 posterior [J*q] and the backward partial products [J][q]
 //     live in shared memory (2 * 72 * 256 * 4 = 147,456 bytes for the
@@ -50,7 +53,7 @@ __global__ void bp_blocked_kernel(
     uint8_t* __restrict__ bits_c,      // [B, J*q] canonical order (out)
     int32_t* __restrict__ unsat_out,   // [B]
     int32_t* __restrict__ iters_out,   // [B]
-    int G, int J, int q, int max_iter, float te_clip)
+    int G, int J, int q, int max_iter, int early_stop, float te_clip)
 {
     extern __shared__ float smem[];
     const int N = J * q;
@@ -87,8 +90,9 @@ __global__ void bp_blocked_kernel(
         unsat += __syncthreads_count(par);
     }
 
+    bool done = unsat == 0;  // uniform across the block
     int it = 0;
-    while (unsat != 0 && it < max_iter) {
+    for (int n = 0; n < max_iter && !(done && early_stop); ++n) {
         // phase B: check update + posterior accumulation, coset by coset
         for (int k = threadIdx.x; k < N; k += blockDim.x) post[k] = llr[k];
         __syncthreads();
@@ -116,10 +120,11 @@ __global__ void bp_blocked_kernel(
             __syncthreads();
         }
         // latch decisions: pr <= 1 with NaN -> 1 == !(post > 0)
-        for (int k = threadIdx.x; k < N; k += blockDim.x) bits[k] = !(post[k] > 0.0f);
+        if (!done)
+            for (int k = threadIdx.x; k < N; k += blockDim.x) bits[k] = !(post[k] > 0.0f);
 
         // phase C: variable update + syndrome of the new decisions
-        unsat = 0;
+        int new_unsat = 0;
         for (int g = 0; g < G; ++g) {
             int par = 0;
             if (active) {
@@ -132,9 +137,13 @@ __global__ void bp_blocked_kernel(
                     par ^= !(pp > 0.0f);
                 }
             }
-            unsat += __syncthreads_count(par);
+            new_unsat += __syncthreads_count(par);
         }
-        ++it;
+        if (!done) {
+            unsat = new_unsat;
+            it = n + 1;
+            done = new_unsat == 0;
+        }
     }
     if (threadIdx.x == 0) {
         unsat_out[b] = unsat;
@@ -146,8 +155,8 @@ __global__ void bp_blocked_kernel(
 
 extern "C" int bp_blocked_launch(
     const void* llr_c, const void* pi, void* msg, void* bits_c, void* unsat,
-    void* iters, int B, int G, int J, int q, int max_iter, float te_clip,
-    void* stream)
+    void* iters, int B, int G, int J, int q, int max_iter, int early_stop,
+    float te_clip, void* stream)
 {
     if (B == 0) return 0;
     const size_t smem = 2 * (size_t)J * q * sizeof(float);
@@ -158,6 +167,6 @@ extern "C" int bp_blocked_launch(
     bp_blocked_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
         (const float*)llr_c, (const int32_t*)pi, (__nv_bfloat16*)msg,
         (uint8_t*)bits_c, (int32_t*)unsat, (int32_t*)iters, G, J, q, max_iter,
-        te_clip);
+        early_stop, te_clip);
     return (int)cudaGetLastError();
 }

@@ -87,7 +87,7 @@ def load() -> ctypes.CDLL:
                 _build(so_path)
             lib = ctypes.CDLL(so_path)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.bp_blocked_launch.argtypes = [vp] * 6 + [ci] * 5 + [cf, vp]
+            lib.bp_blocked_launch.argtypes = [vp] * 6 + [ci] * 6 + [cf, vp]
             lib.bp_blocked_launch.restype = ci
             lib.pairhmm_launch.argtypes = [vp] * 8 + [ci, ci, vp]
             lib.pairhmm_launch.restype = ci

@@ -64,6 +64,9 @@ def load() -> ctypes.CDLL:
             ]
             lib.edit_distance_batch.argtypes = [u8p, i64p, i32p, i32p, i32p, ctypes.c_int64, i32p]
             lib.mea_score.argtypes = [f32p, ctypes.c_int32, ctypes.c_int32, f32p]
+            lib.merge_overlap_batch.argtypes = [
+                u8p, u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, i64p, i64p,
+            ]
             lib.msa_progressive_refine.argtypes = [
                 u8p, i64p, i32p, ctypes.c_int32,       # seqs
                 i32p,                                  # joins
@@ -72,7 +75,7 @@ def load() -> ctypes.CDLL:
                 u8p, ctypes.c_int32, i32p,             # out
             ]
             for fn in (lib.count_trial_llrs, lib.edit_distance_batch, lib.mea_score,
-                       lib.msa_progressive_refine):
+                       lib.merge_overlap_batch, lib.msa_progressive_refine):
                 fn.restype = None
             _lib = lib
         return _lib
@@ -175,6 +178,31 @@ def mea_score_native(post: np.ndarray) -> float:
     lib.mea_score(_ptr(post, ctypes.c_float), ctypes.c_int32(LX), ctypes.c_int32(LY),
                   _ptr(score, ctypes.c_float))
     return float(score[0])
+
+
+def merge_overlap_batch_native(
+    m1: np.ndarray, m2: np.ndarray, l1: np.ndarray, l2: np.ndarray, min_overlap: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Best-overlap scoring for paired-end merging (pipeline/ingest.py):
+    returns (best_o, best_mm) per pair. m1/m2: [n, L] uint8 (m2 already
+    reverse-complemented); l1/l2: read lengths, at most L."""
+    lib = load()
+    m1 = np.ascontiguousarray(m1, np.uint8)
+    m2 = np.ascontiguousarray(m2, np.uint8)
+    l1 = np.ascontiguousarray(l1, np.int64)
+    l2 = np.ascontiguousarray(l2, np.int64)
+    n, L = m1.shape
+    if m2.shape != (n, L) or l1.shape != (n,) or l2.shape != (n,) or (n and max(l1.max(), l2.max()) > L):
+        raise ValueError("merge_overlap_batch_native: inconsistent shapes or lengths")
+    best_o = np.zeros(n, np.int64)
+    best_mm = np.zeros(n, np.int64)
+    lib.merge_overlap_batch(
+        _ptr(m1, ctypes.c_uint8), _ptr(m2, ctypes.c_uint8),
+        _ptr(l1, ctypes.c_int64), _ptr(l2, ctypes.c_int64),
+        ctypes.c_int64(n), ctypes.c_int64(L), ctypes.c_int32(min_overlap),
+        _ptr(best_o, ctypes.c_int64), _ptr(best_mm, ctypes.c_int64),
+    )
+    return best_o, best_mm
 
 
 def msa_progressive_refine_native(

@@ -17,7 +17,10 @@ exclusive product of the bf16 ``t`` in f32, clipped to +-(1 - 1e-5), and
 ``c2v = bf16(log((1 + te) / (1 - te)))``; the posterior is
 ``llr + sum_g c2v`` summed in f32 in coset order; decisions are
 ``!(post > 0)``; parity comes from ``!(bf16(post) > 0)``; results latch at
-the first zero syndrome, capped at ``max_iter``.
+the first zero syndrome, capped at ``max_iter``. ``early_stop=False`` is
+the TPU kernel's fixed-work mode: every codeword runs all ``max_iter``
+iterations and its results still latch at the first zero syndrome, so the
+outputs equal the early-stopped ones word for word.
 
 What bounds the kernel on the card: the per-check sequential sweeps over
 the J column groups, at one 8-warp block per codeword (latency, not
@@ -75,7 +78,9 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def bp_decode_blocked_ref(code: BlockedCode, llr: torch.Tensor, max_iter: int = 200) -> BpResult:
+def bp_decode_blocked_ref(
+    code: BlockedCode, llr: torch.Tensor, max_iter: int = 200, early_stop: bool = True
+) -> BpResult:
     """Plain torch twin of the K1 kernel, on ``llr``'s device. llr: [B, N]
     in the code's external column order."""
     B = llr.shape[0]
@@ -101,7 +106,7 @@ def bp_decode_blocked_ref(code: BlockedCode, llr: torch.Tensor, max_iter: int = 
     done = unsat == 0
     iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
     n = 0
-    while n < max_iter and not bool(done.all()):
+    while n < max_iter and not (early_stop and bool(done.all())):
         tf = t.float()
         # exclusive products over the J edges of each check, as the
         # kernel's two sweeps (same f32 multiplication order)
@@ -133,7 +138,7 @@ def bp_decode_blocked_ref(code: BlockedCode, llr: torch.Tensor, max_iter: int = 
     return BpResult(bits=bits, success=unsat == 0, iterations=iters, unsat=unsat)
 
 
-def _bp_decode_blocked_cuda(code: BlockedCode, llr: torch.Tensor, max_iter: int) -> BpResult:
+def _bp_decode_blocked_cuda(code: BlockedCode, llr: torch.Tensor, max_iter: int, early_stop: bool) -> BpResult:
     global launches
     from .. import cuda_lib
 
@@ -151,7 +156,7 @@ def _bp_decode_blocked_cuda(code: BlockedCode, llr: torch.Tensor, max_iter: int)
     with torch.cuda.device(llr.device):
         status = lib.bp_blocked_launch(
             llr_c.data_ptr(), tabs.pi.data_ptr(), msg.data_ptr(), bits_c.data_ptr(),
-            unsat.data_ptr(), iters.data_ptr(), B, G, J, q, int(max_iter), TE_CLIP,
+            unsat.data_ptr(), iters.data_ptr(), B, G, J, q, int(max_iter), int(early_stop), TE_CLIP,
             torch.cuda.current_stream(llr.device).cuda_stream,
         )
     cuda_lib.check(status, "bp_blocked_launch")
@@ -161,13 +166,15 @@ def _bp_decode_blocked_cuda(code: BlockedCode, llr: torch.Tensor, max_iter: int)
     return BpResult(bits=bits, success=unsat == 0, iterations=iters, unsat=unsat)
 
 
-def bp_decode_blocked(code: BlockedCode, llr: torch.Tensor, max_iter: int = 200) -> BpResult:
+def bp_decode_blocked(
+    code: BlockedCode, llr: torch.Tensor, max_iter: int = 200, early_stop: bool = True
+) -> BpResult:
     """Decode LLRs [B, N] (external column order) of a blocked code:
     the K1 kernel on a CUDA tensor, the plain twin on a CPU tensor."""
     if llr.dim() != 2 or llr.shape[1] != code.n_vars:
         raise ValueError(f"llr must be [B, {code.n_vars}], got {tuple(llr.shape)}")
     if llr.device.type == "cpu":
-        return bp_decode_blocked_ref(code, llr, max_iter)
+        return bp_decode_blocked_ref(code, llr, max_iter, early_stop)
     if llr.device.type != "cuda":
         raise ValueError(f"unsupported device {llr.device}")
-    return _bp_decode_blocked_cuda(code, llr, max_iter)
+    return _bp_decode_blocked_cuda(code, llr, max_iter, early_stop)

@@ -1,13 +1,38 @@
-"""Carried from ``dna_ldpc_tpu/utils/io_formats.py`` as numpy code: the
-sparse GF(2) matrix container the code construction needs, and the
-one-line numeric and line-per-read text files the CLI reads and writes.
-The other codecs (pchk, alist, FASTA/FASTQ, .mat) are not on the port's
-path yet.
+"""Carried from ``dna_ldpc_tpu/utils/io_formats.py`` as numpy code;
+tests/test_torch_cli.py and tests/test_torch_codes.py hold it equal to
+the original.
+
+Codecs for every on-disk artifact format used by the reference pipeline.
+
+The reference moves all data between stages through text/binary files
+(SURVEY.md §2.6). This module reads and writes those formats so the
+port can consume the bundled datasets and emit byte-compatible
+artifacts:
+
+- binary ``.pchk`` parity-check matrices (magic 0x5080 + mod2sparse stream
+  of little-endian 4-byte ints; ``LDPC_dec/ldpc/rcode.cpp:54-86``,
+  ``mod2sparse.cpp:338-427``, ``intio.cpp:35-81``)
+- ``alist`` text format as emitted by the RS-LDPC constructor
+  (``RS LDPC encode/RS_LDPC/RS_LDPC.c:432-479``)
+- one-line space-separated codeword / soft (LLR) files
+  (``ex_decoder/def_func.py:29-57``)
+- read / quality-score line files (``ex_decoder/decoder.py:48-57``)
+- FASTA and FASTQ sequence files (``def_func.py:68-87``; MUSCLE MFA I/O)
 """
 
 from __future__ import annotations
 
+import io
+import os
+
 import numpy as np
+
+PCHK_MAGIC = (ord("P") << 8) + 0x80  # 0x5080
+
+
+# ---------------------------------------------------------------------------
+# Sparse GF(2) matrix container
+# ---------------------------------------------------------------------------
 
 
 class SparseBinaryMatrix:
@@ -97,6 +122,97 @@ class SparseBinaryMatrix:
 
 
 # ---------------------------------------------------------------------------
+# intio: little-endian signed 4-byte integer stream (intio.cpp:35-81)
+# ---------------------------------------------------------------------------
+
+
+def _read_ints(f: io.BufferedReader, n: int) -> np.ndarray:
+    data = f.read(4 * n)
+    return np.frombuffer(data, dtype="<i4")
+
+
+def _write_ints(f, values) -> None:
+    np.asarray(values, dtype="<i4").tofile(f)
+
+
+# ---------------------------------------------------------------------------
+# pchk binary format
+# ---------------------------------------------------------------------------
+
+
+def read_pchk(path: str) -> SparseBinaryMatrix:
+    """Read a Radford-Neal-style binary parity check file.
+
+    Stream layout (mod2sparse_write, ``mod2sparse.cpp:338-376``): magic
+    0x5080, n_rows, n_cols, then for each nonempty row ``-(row+1)`` followed
+    by ``col+1`` per entry, terminated by a single 0.
+    """
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        vals = _read_ints(f, size // 4)
+    if len(vals) < 3 or vals[0] != PCHK_MAGIC:
+        raise ValueError(f"{path}: not a parity check file (bad magic)")
+    n_rows, n_cols = int(vals[1]), int(vals[2])
+    body = vals[3:]
+    end = np.nonzero(body == 0)[0]
+    if len(end) == 0:
+        raise ValueError(f"{path}: truncated pchk stream")
+    body = body[: end[0]]
+    neg = body < 0
+    row_of = np.cumsum(neg)  # which row-marker each token falls under
+    rows_seen = -body[neg] - 1
+    cols = body[~neg] - 1
+    row_ids = rows_seen[row_of[~neg] - 1]
+    return SparseBinaryMatrix.from_coo(n_rows, n_cols, row_ids, cols)
+
+
+def write_pchk(path: str, m: SparseBinaryMatrix) -> None:
+    out = [np.array([PCHK_MAGIC, m.n_rows, m.n_cols], dtype=np.int64)]
+    for i in range(m.n_rows):
+        r = m.row(i)
+        if len(r):
+            out.append(np.concatenate(([-(i + 1)], r + 1)))
+    out.append(np.array([0]))
+    with open(path, "wb") as f:
+        _write_ints(f, np.concatenate(out))
+
+
+# ---------------------------------------------------------------------------
+# alist text format (as emitted by RS_LDPC.c:432-479)
+# ---------------------------------------------------------------------------
+
+
+def read_alist(path: str) -> SparseBinaryMatrix:
+    with open(path) as f:
+        tokens = f.read().split()
+    it = iter(tokens)
+    n_rows, n_cols = int(next(it)), int(next(it))
+    next(it), next(it)  # max row weight, max col weight
+    row_w = [int(next(it)) for _ in range(n_rows)]
+    [int(next(it)) for _ in range(n_cols)]  # col weights
+    rows = [[int(next(it)) - 1 for _ in range(w)] for w in row_w]
+    return SparseBinaryMatrix.from_rows(n_rows, n_cols, rows)
+
+
+def write_alist(path: str, m: SparseBinaryMatrix) -> None:
+    """Write alist with the same field order as the reference constructor:
+    dims, (max) row/col weight, per-row weights, per-col weights, 1-based
+    row entries, 1-based column entries."""
+    row_w = m.row_weights()
+    col_w = m.col_weights()
+    mt = m.transpose()
+    with open(path, "w") as f:
+        f.write(f"{m.n_rows} {m.n_cols}\n")
+        f.write(f"{int(row_w.max(initial=0))} {int(col_w.max(initial=0))}\n")
+        f.write(" ".join(map(str, row_w)) + " \n")
+        f.write(" ".join(map(str, col_w)) + " \n")
+        for i in range(m.n_rows):
+            f.write(" ".join(str(c + 1) for c in m.row(i)) + " \n")
+        for j in range(m.n_cols):
+            f.write(" ".join(str(r + 1) for r in mt.row(j)) + " \n")
+
+
+# ---------------------------------------------------------------------------
 # One-line numeric files (codeword / soft LLR) — def_func.py:29-57
 # ---------------------------------------------------------------------------
 
@@ -134,3 +250,103 @@ def write_lines(path: str, lines) -> None:
     with open(path, "w") as f:
         for line in lines:
             f.write(str(line) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# FASTA / FASTQ
+# ---------------------------------------------------------------------------
+
+
+def read_fasta(path: str) -> list[tuple[str, str]]:
+    records: list[tuple[str, str]] = []
+    label, chunks = None, []
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if line.startswith(">"):
+                if label is not None:
+                    records.append((label, "".join(chunks)))
+                label, chunks = line[1:], []
+            elif line:
+                chunks.append(line)
+    if label is not None:
+        records.append((label, "".join(chunks)))
+    return records
+
+
+def write_fasta(path: str, records, wrap: int | None = None) -> None:
+    """Write FASTA; ``wrap=80`` reproduces MUSCLE's 80-column wrapping
+    (MUSCLE/src/myutils.cpp:2712-2740)."""
+    with open(path, "w") as f:
+        for label, seq in records:
+            f.write(f">{label}\n")
+            if wrap:
+                for i in range(0, len(seq), wrap):
+                    f.write(seq[i : i + wrap] + "\n")
+            else:
+                f.write(seq + "\n")
+
+
+def read_fastq(path: str):
+    """4-line-record FASTQ parser; returns (headers, seqs, quals) like the
+    reference ``Fastq`` class (def_func.py:68-87)."""
+    headers, seqs, quals = [], [], []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            line = line.rstrip("\n")
+            m = i % 4
+            if m == 0:
+                headers.append(line)
+            elif m == 1:
+                seqs.append(line)
+            elif m == 3:
+                quals.append(line)
+    return headers, seqs, quals
+
+
+# ---------------------------------------------------------------------------
+# MATLAB .mat interop (rs_dec.exe artifacts)
+# ---------------------------------------------------------------------------
+
+
+def write_index_mats(out_dir: str, dec_binary_index: np.ndarray, cnumerr: np.ndarray) -> None:
+    """Write ``dec_binary_index.mat`` / ``cnumerr.mat`` exactly as
+    rs_dec.exe does (``rs_dec_init.m:52-53``): variable names match, so
+    the reference's ``scipy.io.loadmat`` consumer (``decoder.py:76-80``)
+    can read our files interchangeably."""
+    from scipy.io import savemat
+
+    savemat(
+        os.path.join(out_dir, "dec_binary_index.mat"),
+        {"dec_binary_index": np.asarray(dec_binary_index, np.float64)},
+    )
+    savemat(
+        os.path.join(out_dir, "cnumerr.mat"),
+        {"cnumerr": np.asarray(cnumerr, np.float64).reshape(-1, 1)},
+    )
+
+
+def read_index_mats(out_dir: str):
+    """Read rs_dec.exe's output pair; returns (dec_binary_index [N, 16]
+    uint8, cnumerr [N] int32) with MATLAB's -1 failure sentinel kept."""
+    from scipy.io import loadmat
+
+    m1 = loadmat(os.path.join(out_dir, "dec_binary_index.mat"))
+    m2 = loadmat(os.path.join(out_dir, "cnumerr.mat"))
+    dec = np.asarray(m1["dec_binary_index"]).astype(np.uint8)
+    cn = np.asarray(m2["cnumerr"]).reshape(-1).astype(np.int32)
+    return dec, cn
+
+
+def write_index_txt(path: str, index_bits: np.ndarray) -> None:
+    """``index.txt`` as decoder.py:63-64 writes it: the 32 index bits of
+    each read, whitespace-separated (rs_dec_init.m fscanf('%d'))."""
+    bits = np.asarray(index_bits).reshape(-1, 32)
+    with open(path, "w") as f:
+        for row in bits:
+            f.write(" ".join(str(int(b)) for b in row) + "\n")
+
+
+def read_index_txt(path: str) -> np.ndarray:
+    vals = np.loadtxt(path, dtype=np.int64).reshape(-1, 32)
+    return vals.astype(np.uint8)

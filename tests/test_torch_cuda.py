@@ -12,7 +12,10 @@ tanh/log); K2's posteriors agree within atol = rtol = 1e-4 and its EA
 score equals the native ``mea_score`` of its own bf16-rounded posterior;
 the MEA-DP kernel's codes and positions are bit-equal to its twin's (one
 f32 add per cell, exact compares); edit distances are integers
-(bit-equal); the device MSA gives the CPU's rows."""
+(bit-equal); the device MSA gives the CPU's rows; the decoder zoo's
+integer-valued decoders (quantized min-sum levels, Gallager, FAID, BEC
+peeling) give the CPU's results exactly, float min-sum the CPU's outcomes
+on converging words."""
 
 import numpy as np
 import pytest
@@ -20,7 +23,7 @@ import torch
 
 from dna_ldpc_tpu_torch import native_lib
 from dna_ldpc_tpu_torch.models import BlockedCode, build_rs_ldpc, dna_storage_blocked
-from dna_ldpc_tpu_torch.ops import bp_cuda
+from dna_ldpc_tpu_torch.ops import bp_cuda, decoders, faid
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
 from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, pairhmm_cuda
 from dna_ldpc_tpu_torch.ops.msa.align import (
@@ -71,7 +74,7 @@ def _reads(rng, n):
 
 def _same_bp(k, r):
     for name in ("bits", "success", "unsat", "iterations"):
-        assert torch.equal(getattr(k, name), getattr(r, name)), name
+        assert torch.equal(getattr(k, name).cpu(), getattr(r, name).cpu()), name
 
 
 @pytest.mark.parametrize("cov_mean,eps", [(5.0, 0.02), (1.5, 0.05)])
@@ -102,6 +105,54 @@ def test_bp_kernel_deployed_code_edge_cases(dev):
     assert k.iterations[0].item() == 0 and k.success[0].item()
     ok = k.success.cpu().numpy()
     assert ok[4:].all() and (k.bits.cpu().numpy()[4:] == cw[4:]).all()
+
+
+@pytest.mark.parametrize("cov_mean,eps", [(3.7, 0.02), (1.5, 0.05)])
+def test_bp_kernel_fixed_work_matches_twin(dev, cov_mean, eps):
+    """early_stop=False on the deployed code: equal to the twin in the same
+    mode, and word for word to the early-stopped kernel."""
+    code = dna_storage_blocked()
+    _, llr = _coverage_llrs(code, 24, cov_mean, eps, seed=6)
+    t = torch.from_numpy(llr).to(dev)
+    before = bp_cuda.launches
+    fixed = bp_cuda.bp_decode_blocked(code, t, 40, early_stop=False)
+    early = bp_cuda.bp_decode_blocked(code, t, 40)
+    torch.cuda.synchronize()
+    assert bp_cuda.launches == before + 2
+    _same_bp(fixed, bp_cuda.bp_decode_blocked_ref(code, t, 40, early_stop=False))
+    _same_bp(fixed, early)
+
+
+def test_decoder_zoo_on_device_matches_cpu(dev):
+    """One batch of each decoder on the card and on the CPU, on the
+    (4, 12, 4) and (4, 8, 3) codes' gather tables."""
+    from dna_ldpc_tpu_torch.models import LdpcGraph
+    from dna_ldpc_tpu_torch.models.mod2 import random_codewords
+
+    for params in ((4, 12, 4), (4, 8, 3)):
+        H = build_rs_ldpc(*params)
+        g = LdpcGraph.from_sparse(H, detect_blocked=False)
+        rng = np.random.default_rng(params[2])
+        cw = random_codewords(H.to_dense(), 48, rng)
+        llr = torch.from_numpy((2.5 * np.where(cw == 0, 1.0, -1.0) + rng.normal(0, 1.5, cw.shape)).astype(np.float32))
+        hard = torch.from_numpy((cw ^ (rng.random(cw.shape) < 0.03)).astype(np.uint8))
+        vals = torch.from_numpy(np.where(rng.random(cw.shape) < 0.3, 2, cw).astype(np.int8))
+        runs = [
+            lambda x: decoders.quantized_min_sum_decode(g, x, max_iter=30, offset=1.0),
+            lambda x: decoders.quantized_min_sum_decode(g, x, max_iter=30, quantizer="quasi-uniform"),
+            lambda x: decoders.gallager_decode(g, (x < 0).to(torch.uint8), 30, 1),
+            lambda x: faid.faid_decode(g, (x < 0).to(torch.uint8), 30),
+        ]
+        for run in runs:
+            _same_bp(run(llr.to(dev)), run(llr))
+        for variant in (0, 2):
+            _same_bp(decoders.gallager_decode(g, hard.to(dev), 30, variant), decoders.gallager_decode(g, hard, 30, variant))
+        _same_bp(decoders.bec_peel(g, vals.to(dev), 50), decoders.bec_peel(g, vals, 50))
+        if params[2] == 3:
+            _same_bp(faid.faid_decode(g, hard.to(dev), 30, faid.lut_rule()), faid.faid_decode(g, hard, 30, faid.lut_rule()))
+        k, c = decoders.min_sum_decode(g, llr.to(dev), 30), decoders.min_sum_decode(g, llr, 30)
+        ok = c.success & k.success.cpu()
+        assert ok.sum() > len(cw) // 2 and torch.equal(k.bits.cpu()[ok], c.bits[ok])
 
 
 def test_pairhmm_kernel_matches_twin(dev):
