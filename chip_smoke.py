@@ -16,7 +16,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    iterations must all be equal;
 3. K2, the pair-HMM kernel, against its twin: 512 read pairs at
    Lmax = 160 — posteriors within atol = rtol = 1e-4, EA scores equal to
-   the native mea_score of the bf16-rounded kernel posterior;
+   the native mea_score of the bf16-rounded kernel posterior — then 6,000
+   pairs, the size of one launch of the trial (the 512 are its first):
+   the same tolerance against the twin, the first 512 pairs bit-equal to
+   the small batch, and the time the ``kernels`` line reports;
 4. the device edit distance against the native one on the same pairs
    (bit-equal);
 5. one full trial at the reference's scale: 272 codewords, 72,000
@@ -53,9 +56,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    iteration at a batch of 32 and at its full batch, and K1's codewords
    per second with and without early stop.
 
+Phases 2, 3, 7 and 9c print each kernel's time beside its bound at the
+timed shape — the least time the card could take for that work
+(``dna_ldpc_tpu_torch/utils/roofline.py``: the bytes that must move at
+3.35 TB/s against the f32 operations at 67 TFLOP/s and the
+special-function operations at 16 per clock and SM, from this run's
+shapes and the iteration counts it returned) — and the share reached.
+
 The line before the last is a JSON object with each kernel's launches on
 the trial of phase 5 (K1: plus the waterfall of phase 9a), error against
-its twin, and time beside the twin's;
+its twin, time beside the twin's and beside its bound, and
+``library_ms`` (null: no single PyTorch call computes any of the three);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -80,6 +91,7 @@ SIM_EBNO = [3.75, 4.0, 4.25, 4.5]
 BP_BATCH, BP_MAX_FRAMES = 1024, 32768
 ZOO_BATCH, ZOO_MAX_FRAMES = 512, 2048
 SMALL_BATCH = 32  # per-iteration times here and at full batch: launch- or memory-bound
+K2_TRIAL_PAIRS = 6000  # pairs in one K2 launch of the 72,000-read trial (47,327 pairs in 7 launches)
 ZOO_POINTS = [("quantized_min_sum", "awgn", 4.75), ("gallager_b", "bsc", 0.005), ("faid", "bsc", 0.003),
               ("bec", "bec", 0.055)]
 
@@ -119,6 +131,18 @@ def _noisy_pairs(rng, n: int):
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
+def _coverage_llrs(rng, cw, cov_mean: float, eps: float, dev):
+    """Trial-like LLRs of codewords ``cw``: Poisson(cov_mean) reads per
+    bit, each wrong with probability eps."""
+    import numpy as np
+    import torch
+
+    cov = rng.poisson(cov_mean, cw.shape)
+    errs = rng.binomial(cov, eps)
+    mag = math.log((1 - eps) / eps)
+    return torch.as_tensor(((cov - 2 * errs) * mag * np.where(cw == 0, 1.0, -1.0)).astype(np.float32), device=dev)
+
+
 def _same(a, b, what: str) -> None:
     """Two BpResults equal field by field, or raise."""
     import torch
@@ -133,7 +157,7 @@ def _point_line(r) -> str:
             f"undetected {r.undetected_errors}, mean iterations {r.mean_iters:.2f}, {r.seconds:.2f} s")
 
 
-def _simulator_phase(dev) -> int:
+def _simulator_phase(dev, clock_mhz: float) -> int:
     """Phase 9 (see the module docstring). Returns K1's launches in the
     bp waterfall."""
     import dataclasses
@@ -150,6 +174,7 @@ def _simulator_phase(dev) -> int:
     from dna_ldpc_tpu_torch.ops.channels import bsc_flips
     from dna_ldpc_tpu_torch.ops.faid import faid_decode, lut_rule
     from dna_ldpc_tpu_torch.pipeline.decode import deployed_graph
+    from dna_ldpc_tpu_torch.utils import roofline
     from dna_ldpc_tpu_torch.utils.io_formats import read_pchk
 
     H, graph = dna_storage_pchk(), deployed_graph()
@@ -220,6 +245,11 @@ def _simulator_phase(dev) -> int:
     ms_es = _cuda_ms(lambda: bp_cuda.bp_decode_blocked(blocked, llr, 50), 3)
     ms_fw = _cuda_ms(lambda: bp_cuda.bp_decode_blocked(blocked, llr, 50, early_stop=False), 3)
     n_fail = int((~k_es.success).sum())
+    n_edges = blocked.G * blocked.J * blocked.q
+    b_es, _ = roofline.k1_bound_ms(n_edges, blocked.n_vars, k_es.iterations.tolist(), clock_mhz)
+    b_fw, by = roofline.k1_bound_ms(n_edges, blocked.n_vars, [50] * BP_BATCH, clock_mhz)
+    print(f"[9c] K1 bound ({by}): early-stopped {b_es:.3f} ms ({100 * b_es / ms_es:.1f} % reached), fixed work "
+          f"{b_fw:.3f} ms ({100 * b_fw / ms_fw:.1f} % reached)")
     print(f"[9c] K1 vs twin on a {BP_BATCH}-frame simulator batch at 4.25 dB ({n_fail} frames fail, mean iterations "
           f"{k_es.iterations.float().mean().item():.2f}): early stop and fixed work both equal to the twin and to "
           f"each other; K1 {ms_es:.3f} ms ({BP_BATCH * 1e3 / ms_es:.0f} cw/s) early-stopped, {ms_fw:.3f} ms "
@@ -324,6 +354,7 @@ def main() -> int:
     from dna_ldpc_tpu_torch.pipeline.simulate import (
         ChannelModel, encode_oligos, group_union_codewords, simulate_reads,
     )
+    from dna_ldpc_tpu_torch.utils import roofline
     from dna_ldpc_tpu_torch.utils.io_formats import write_lines, write_vector
 
     dev = torch.device("cuda", 0)
@@ -332,6 +363,10 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
     t0 = time.time()
     cuda_lib.load()
     t_cuda = time.time() - t0
@@ -344,16 +379,8 @@ def main() -> int:
     code = dna_storage_blocked()
 
     # ---- 2. K1 against its twin ------------------------------------------
-    def coverage_llrs(cw, cov_mean, eps):
-        cov = rng.poisson(cov_mean, cw.shape)
-        errs = rng.binomial(cov, eps)
-        mag = math.log((1 - eps) / eps)
-        return torch.as_tensor(
-            ((cov - 2 * errs) * mag * np.where(cw == 0, 1.0, -1.0)).astype(np.float32), device=dev
-        )
-
     cw = group_union_codewords(code, 64, rng)
-    llr = coverage_llrs(cw, 3.7, 0.02)
+    llr = _coverage_llrs(rng, cw, 3.7, 0.02, dev)
     k = bp_cuda.bp_decode_blocked(code, llr, 200)
     r = bp_cuda.bp_decode_blocked_ref(code, llr, 200)
     torch.cuda.synchronize()
@@ -364,7 +391,7 @@ def main() -> int:
     bits_diff = (k.bits[ok].int() - r.bits[ok].int()).abs().max().item() if bool(ok.any()) else 0
     if bits_diff:
         raise AssertionError("K1 bits differ from the twin's where decoding succeeded")
-    low = coverage_llrs(group_union_codewords(code, 64, rng), 1.5, 0.05)
+    low = _coverage_llrs(rng, group_union_codewords(code, 64, rng), 1.5, 0.05, dev)
     k_low = bp_cuda.bp_decode_blocked(code, low, 200)
     r_low = bp_cuda.bp_decode_blocked_ref(code, low, 200)
     torch.cuda.synchronize()
@@ -379,17 +406,21 @@ def main() -> int:
     bit_err = int((k.bits.cpu().numpy()[ok.cpu().numpy()] != cw[ok.cpu().numpy()]).sum())
     k1_ms = _cuda_ms(lambda: bp_cuda.bp_decode_blocked(code, llr, 200), 5)
     k1_plain = _cuda_ms(lambda: bp_cuda.bp_decode_blocked_ref(code, llr, 200), 2)
+    k1_bound, k1_by = roofline.k1_bound_ms(code.G * code.J * code.q, code.n_vars, k.iterations.tolist(), clock_mhz)
     print(f"[2] K1 bp_blocked vs twin: 64 codewords, {n_ok} decoded, bit errors {bit_err}, "
           f"mean iterations {k.iterations.float().mean().item():.2f}; equal; kernel "
           f"{k1_ms:.3f} ms ({64e3 / k1_ms:.0f} cw/s), twin {k1_plain:.3f} ms "
           f"({64e3 / k1_plain:.0f} cw/s); low coverage: {n_capped} of 64 words at the "
-          f"200-iteration cap, bits, unsat and iterations equal")
+          f"200-iteration cap, bits, unsat and iterations equal; bound {k1_bound:.4f} ms ({k1_by}, SM clock "
+          f"{clock_mhz:.0f} MHz), {100 * k1_bound / k1_ms:.1f} % reached")
 
     # ---- 3. K2 against its twin ------------------------------------------
     Lmax = 160
     xs, ys = _noisy_pairs(rng, 512)
-    X, Y, lx, ly = encode_pairs(xs, ys, Lmax)
-    args = [torch.as_tensor(a, device=dev) for a in (X, Y, lx, ly)]
+    more_x, more_y = _noisy_pairs(np.random.default_rng(3), K2_TRIAL_PAIRS - 512)  # rng stays as the trial needs it
+    X, Y, lx, ly = encode_pairs(xs + more_x, ys + more_y, Lmax)
+    big = [torch.as_tensor(a, device=dev) for a in (X, Y, lx, ly)]
+    args = [a[:512] for a in big]
     post_k, ea_k = pairhmm_cuda.post_ea(*args, Lmax)
     post_r, ea_r = pairhmm_cuda.post_ea_ref(*args, Lmax)
     torch.cuda.synchronize()
@@ -405,11 +436,37 @@ def main() -> int:
     ea_diff = (ea_k - ea_r).abs().max().item()
     k2_ms = _cuda_ms(lambda: pairhmm_cuda.post_ea(*args, Lmax), 5)
     k2_plain = _cuda_ms(lambda: pairhmm_cuda.post_ea_ref(*args, Lmax), 2)
+    k2_bound, k2_by = roofline.k2_bound_ms(lx[:512], ly[:512], Lmax, clock_mhz)
+    n_differ = int((post_k != post_r).sum())
     print(f"[3] K2 pairhmm vs twin: 512 pairs at Lmax={Lmax}; posterior max abs diff "
-          f"{k2_err:.3e} (atol = rtol = 1e-4), EA max abs diff vs twin {ea_diff:.3e}, "
+          f"{k2_err:.3e} (atol = rtol = 1e-4), {n_differ} of {post_k.numel()} entries differ at all, "
+          f"EA max abs diff vs twin {ea_diff:.3e}, "
           f"EA == native mea_score; "
           f"kernel {k2_ms * 1e3 / 512:.3f} ms per 1000 pairs, twin "
-          f"{k2_plain * 1e3 / 512:.3f} ms per 1000 pairs")
+          f"{k2_plain * 1e3 / 512:.3f} ms per 1000 pairs; bound {k2_bound * 1e3 / 512:.3f} ms per 1000 pairs "
+          f"({k2_by}), {100 * k2_bound / k2_ms:.1f} % reached")
+    # the size of one launch of the trial: this is the shape the kernels line reports
+    post_b, ea_b = pairhmm_cuda.post_ea(*big, Lmax)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    post_rb, ea_rb = pairhmm_cuda.post_ea_ref(*big, Lmax)  # about ten seconds: timed in the call that is compared
+    stop.record()
+    torch.cuda.synchronize()
+    k2_plain_big = start.elapsed_time(stop)
+    k2_err_big = (post_b - post_rb).abs().max().item()
+    if not torch.allclose(post_b, post_rb, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"K2 posteriors of {K2_TRIAL_PAIRS} pairs differ from the twin's (max abs {k2_err_big:.3e})")
+    if not (torch.equal(post_b[:512], post_k) and torch.equal(ea_b[:512], ea_k)):
+        raise AssertionError("K2 gives a pair other values in a larger batch")
+    n_differ_big, ea_diff_big = int((post_b != post_rb).sum()), (ea_b - ea_rb).abs().max().item()
+    del post_b, post_rb
+    k2_ms_big = _cuda_ms(lambda: pairhmm_cuda.post_ea(*big, Lmax), 3)
+    k2_bound_big, k2_by_big = roofline.k2_bound_ms(lx, ly, Lmax, clock_mhz)
+    print(f"[3] K2 on {K2_TRIAL_PAIRS} pairs (one launch of the trial's size): posterior max abs diff {k2_err_big:.3e}, "
+          f"{n_differ_big} entries differ at all, EA max abs diff vs twin {ea_diff_big:.3e}, the first 512 pairs "
+          f"bit-equal to the small batch; kernel {k2_ms_big:.3f} ms ({k2_ms_big * 1e3 / K2_TRIAL_PAIRS:.3f} per 1000 "
+          f"pairs), twin {k2_plain_big:.1f} ms; bound {k2_bound_big:.3f} ms ({k2_by_big}), "
+          f"{100 * k2_bound_big / k2_ms_big:.1f} % reached")
 
     # ---- 4. device edit distance against the native one -------------------
     seqs = xs + ys
@@ -522,9 +579,11 @@ def main() -> int:
     path_len = (codes_k != 0).sum(1).float().mean().item()
     mea_ms = _cuda_ms(lambda: mea_cuda.mea_walk(plane, wA, wB, Cmax), 20)
     mea_plain = _cuda_ms(lambda: mea_cuda.mea_walk_ref(plane, wA, wB, Cmax), 2)
+    mea_bound, mea_by = roofline.mea_bound_ms(C7, Cmax, clock_mhz)
     print(f"[7] mea_dp vs twin: {C7} clusters of {nb} reads, first progressive wave, Cmax={Cmax}, "
           f"mean path length {path_len:.1f}; codes and positions equal; kernel {mea_ms:.3f} ms, twin "
-          f"{mea_plain:.3f} ms per merge of {C7} clusters")
+          f"{mea_plain:.3f} ms per merge of {C7} clusters; bound {mea_bound:.4f} ms ({mea_by}), "
+          f"{100 * mea_bound / mea_ms:.1f} % reached")
 
     # ---- 8. the same trial through the command line ------------------------
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -552,19 +611,21 @@ def main() -> int:
           f"{proc.stdout.strip().splitlines()[-1]}")
 
     # ---- 9. the code simulator on the card ----------------------------------
-    k1_sim_launches = _simulator_phase(dev)
+    k1_sim_launches = _simulator_phase(dev, clock_mhz)
 
     kernels = [
         {"name": "bp_blocked", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/bp_blocked.cu",
          "replaces": "dna_ldpc_tpu/ops/bp_pallas.py:55", "launches": launches["bp_blocked"] + k1_sim_launches,
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None},
         {"name": "pairhmm", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/pairhmm.cu",
          "replaces": "dna_ldpc_tpu/ops/msa/pairhmm_pallas.py:114",
-         "launches": launches["pairhmm"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain},
+         "launches": launches["pairhmm"], "max_abs_err": max(k2_err, k2_err_big), "ms": k2_ms_big,
+         "plain_ms": k2_plain_big, "bound_ms": k2_bound_big, "bound_by": k2_by_big, "library_ms": None},
         {"name": "mea_dp", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/mea_dp.cu",
          "replaces": "dna_ldpc_tpu/ops/msa/device_msa.py:212", "launches": launches["mea_dp"],
-         "max_abs_err": float(mea_err), "ms": mea_ms, "plain_ms": mea_plain},
+         "max_abs_err": float(mea_err), "ms": mea_ms, "plain_ms": mea_plain, "bound_ms": mea_bound,
+         "bound_by": mea_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -87,9 +87,9 @@ def load() -> ctypes.CDLL:
                 _build(so_path)
             lib = ctypes.CDLL(so_path)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.bp_blocked_launch.argtypes = [vp] * 6 + [ci] * 6 + [cf, vp]
+            lib.bp_blocked_launch.argtypes = [vp] * 6 + [ci] * 11 + [cf, vp]
             lib.bp_blocked_launch.restype = ci
-            lib.pairhmm_launch.argtypes = [vp] * 8 + [ci, ci, vp]
+            lib.pairhmm_launch.argtypes = [vp] * 9 + [ci, ci, ctypes.c_longlong, vp]
             lib.pairhmm_launch.restype = ci
             lib.mea_dp_launch.argtypes = [vp] * 5 + [ci, ci, vp]
             lib.mea_dp_launch.restype = ci

@@ -35,7 +35,7 @@ import torch
 from ... import native_lib
 from .consistency import consistency_core
 from .pairhmm import batch_post_ea, encode_pairs, padded_lmax
-from .pairhmm_cuda import post_ea
+from .pairhmm_cuda import kernel_layout, post_ea
 
 CONSISTENCY_ITERS = 2   # pairhmm.h:8
 REFINE_ITERS = 100      # pairhmm.h:9
@@ -208,8 +208,8 @@ def _pair_posteriors(xs: list[str], ys: list[str], Lmax: int, dev: torch.device)
     ntot = len(xs)
     posts = torch.empty((ntot, Lmax, Lmax), dtype=torch.bfloat16, device=dev)
     ea_all = np.zeros(ntot, np.float32)
-    # kernel bytes per pair: forward M-plane scratch + f32 posterior + bf16 copy
-    per_pair = (2 * Lmax + 1) * (Lmax + 1) * 4 + Lmax * Lmax * 6
+    # kernel bytes per pair: forward-M scratch + f32 posterior + bf16 copy
+    per_pair = kernel_layout(Lmax)["fm_stride"] * 4 + Lmax * Lmax * 6
     chunk = max(1, BUDGET_BYTES // per_pair)
     for lo in range(0, ntot, chunk):
         hi = min(ntot, lo + chunk)

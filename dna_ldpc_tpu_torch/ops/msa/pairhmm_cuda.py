@@ -4,15 +4,15 @@ torch twin.
 ``post_ea`` replaces the TPU kernel
 ``dna_ldpc_tpu/ops/msa/pairhmm_pallas.py::_kernel`` (launched by
 ``_post_pallas``; entry ``batch_post_ea_pallas``). On CUDA tensors it
-launches ``csrc/pairhmm.cu`` (one thread block per pair, one thread per DP
-row); on CPU tensors it runs ``post_ea_ref``, the same recurrences as
-plain torch ops vectorized over pairs. A CUDA tensor launches the kernel
-or raises.
+launches ``csrc/pairhmm.cu`` (one warp per pair, a wavefront in
+registers); on CPU tensors it runs ``post_ea_ref``, the same recurrences
+as plain torch ops vectorized over pairs. A CUDA tensor launches the
+kernel or raises.
 
-Both follow the TPU kernel's three phases over antidiagonals d = i + j:
+Both compute the TPU kernel's three phases:
 
 1. forward sweep of the 5-state pair-HMM in log space, keeping the
-   forward M-plane and capturing total = lse_s(Fwd[s](lx, ly) + start[s]);
+   forward M values and capturing total = lse_s(Fwd[s](lx, ly) + start[s]);
 2. anti-causal backward sweep in natural coordinates (terminal
    Bwd[s](lx, ly) = start[s]) fused with the posterior
    exp(min(F_M + B_M - total, 0)), zeroed below 0.01 and outside the
@@ -22,10 +22,24 @@ Both follow the TPU kernel's three phases over antidiagonals d = i + j:
    the pair's EA score — bit-equal to the native ``mea_score`` on the same
    bf16-rounded posterior, which UPGMA tie-breaks rely on.
 
-What bounds the kernel on the card: 3 x (2 Lmax + 1) dependent
-antidiagonal steps per pair with a block barrier each, and ~30 expf/logf
-per cell; the forward M-plane ((2 Lmax + 1) x (Lmax + 1) f32, 207 KB at
-Lmax = 160) sits in a global scratch buffer (L2-resident per block).
+The twin sweeps antidiagonals of the whole (Lmax + 1)^2 plane; the kernel
+sweeps only the pair's box, lane by lane, and runs phase 3 backward inside
+phase 2 (every bf16 posterior is a multiple of 2^-14 in [2^-7, 1], so the
+sums are exact in f32 and the direction does not change the score). A
+cell's value depends only on its three neighbours, so the sweep order
+changes no bit.
+
+What bounds the kernel on the card: operations — 13 expf + 5 logf per
+cell forward, 14 + 5 backward, ~23k cells per pair of 150-nt reads; the
+f32 posteriors out (102 KB per pair at Lmax = 160) are the bytes that
+must move, a tenth of that time. The design spends no barrier and no
+shared memory on the DP: lane l of the pair's warp owns
+R = ceil((lx + 1) / 32) <= 6 consecutive rows in registers and takes the
+row above from lane l - 1 by shuffle, one column behind it; reads above
+191 nt are swept in bands of 192 rows. The forward M values go to a
+global scratch laid out [band][step][row of strip][lane], so that every
+store and load is a coalesced 128-byte line and a lane reads back only
+what it wrote; ``kernel_layout`` sizes it.
 """
 
 from __future__ import annotations
@@ -184,28 +198,45 @@ def post_ea_ref(xc, yc, lx, ly, Lmax: int):
     return post, ea
 
 
+STRIP_ROWS = 6  # most rows one lane keeps in registers (the kernel's RMAX)
+
+
+def kernel_layout(Lmax: int) -> dict:
+    """Scratch sizes per pair of the K2 kernel at Lmax: ``fm_stride`` f32 of
+    forward-M scratch (bands of 32 * STRIP_ROWS rows x (Lmax + 32) steps x
+    STRIP_ROWS x 32 lanes) and ``edge_floats`` f32 of band-edge rows (0
+    when one band holds every read)."""
+    if Lmax + 1 > 1024:
+        raise ValueError(f"Lmax={Lmax} exceeds the kernel's domain (Lmax <= 1023)")
+    bands = -(-(Lmax + 1) // (32 * STRIP_ROWS))
+    return {
+        "fm_stride": bands * (Lmax + 32) * STRIP_ROWS * 32,
+        "edge_floats": 2 * 5 * (Lmax + 1) if bands > 1 else 0,
+    }
+
+
 def _post_ea_cuda(xc, yc, lx, ly, Lmax: int):
     global launches, pairs
     from ... import cuda_lib
 
     P = xc.shape[0]
-    if Lmax + 1 > 1024:
-        raise ValueError(f"Lmax={Lmax} exceeds one block's threads")
+    lay = kernel_layout(Lmax)
     dev = xc.device
     xc = xc.to(torch.int8).contiguous()
     yc = yc.to(torch.int8).contiguous()
     lx = lx.to(torch.int32).contiguous()
     ly = ly.to(torch.int32).contiguous()
     consts = torch.as_tensor(hmm_consts(), device=dev)
-    fwdm = torch.empty((P, 2 * Lmax + 1, Lmax + 1), dtype=torch.float32, device=dev)
+    fwdm = torch.empty((P, lay["fm_stride"]), dtype=torch.float32, device=dev)
+    edge = torch.empty((P, lay["edge_floats"]), dtype=torch.float32, device=dev)
     post = torch.empty((P, Lmax, Lmax), dtype=torch.float32, device=dev)
     ea = torch.empty(P, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
     with torch.cuda.device(dev):
         status = lib.pairhmm_launch(
             xc.data_ptr(), yc.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-            consts.data_ptr(), fwdm.data_ptr(), post.data_ptr(), ea.data_ptr(),
-            P, Lmax, torch.cuda.current_stream(dev).cuda_stream,
+            consts.data_ptr(), fwdm.data_ptr(), edge.data_ptr(), post.data_ptr(), ea.data_ptr(),
+            P, Lmax, lay["fm_stride"], torch.cuda.current_stream(dev).cuda_stream,
         )
     cuda_lib.check(status, "pairhmm_launch")
     if P:

@@ -77,17 +77,72 @@ def _same_bp(k, r):
         assert torch.equal(getattr(k, name).cpu(), getattr(r, name).cpu()), name
 
 
+@pytest.mark.parametrize("early_stop", [True, False])
+@pytest.mark.parametrize("B", [1, 40, 133])  # 133: one block more than the card has SMs
 @pytest.mark.parametrize("cov_mean,eps", [(5.0, 0.02), (1.5, 0.05)])
-def test_bp_kernel_small_code(dev, cov_mean, eps):
-    code = BlockedCode.detect(build_rs_ldpc(4, 12, 4))
-    _, llr = _coverage_llrs(code, 40, cov_mean, eps, seed=11)
+@pytest.mark.parametrize("code_args", [(4, 12, 4), (6, 32, 3)])
+def test_bp_kernel_small_code(dev, code_args, cov_mean, eps, B, early_stop):
+    """The generic kernel with staged tiles (J and q at run time, tiles in
+    shared memory): q = 16 and q = 64, neither a multiple of a warp's 32
+    checks on its own."""
+    code = BlockedCode.detect(build_rs_ldpc(*code_args))
+    lay = bp_cuda.kernel_layout(code.J, code.q)
+    assert lay.staged and not lay.unrolled
+    _, llr = _coverage_llrs(code, B, cov_mean, eps, seed=11)
     t = torch.from_numpy(llr).to(dev)
     before = bp_cuda.launches
-    k = bp_cuda.bp_decode_blocked(code, t, 50)
-    r = bp_cuda.bp_decode_blocked_ref(code, t, 50)
+    k = bp_cuda.bp_decode_blocked(code, t, 50, early_stop=early_stop)
+    r = bp_cuda.bp_decode_blocked_ref(code, t, 50, early_stop=early_stop)
     torch.cuda.synchronize()
     assert bp_cuda.launches == before + 1
     _same_bp(k, r)
+
+
+@pytest.mark.parametrize("early_stop", [True, False])
+@pytest.mark.parametrize("code_args,GJq", [((8, 70, 3), (3, 70, 256)), ((9, 20, 3), (3, 20, 512))])
+def test_bp_kernel_unstaged_code(dev, code_args, GJq, early_stop):
+    """Codes the kernel reads in place from the slab, with their own int32
+    pi table: 3 x 70 x 256, whose tiles do not fit beside the posterior and
+    the backward buffer, and 3 x 20 x 512, whose 16 warps hide the loads
+    (and whose pi entries do not fit a byte)."""
+    code = BlockedCode.detect(build_rs_ldpc(*code_args))
+    lay = bp_cuda.kernel_layout(code.J, code.q)
+    assert (code.G, code.J, code.q) == GJq and not lay.staged and not lay.unrolled
+    _, easy = _coverage_llrs(code, 8, 6.0, 0.01, seed=13)
+    _, hard = _coverage_llrs(code, 4, 2.5, 0.04, seed=14)
+    llr = np.concatenate([easy, hard])
+    t = torch.from_numpy(llr).to(dev)
+    k = bp_cuda.bp_decode_blocked(code, t, 30, early_stop=early_stop)
+    _same_bp(k, bp_cuda.bp_decode_blocked_ref(code, t, 30, early_stop=early_stop))
+    assert 0 < int(k.success.sum()) and int(k.iterations.max()) > 1
+
+
+@pytest.mark.parametrize("G", [1, 2, 3])
+def test_bp_kernel_unrolled_few_cosets(dev, G):
+    """The unrolled kernel on 72 x 256 codes with 1, 2 and 3 cosets: one half
+    of the block idle, one coset per half (no tile to prefetch), and an odd
+    count (the halves take 2 and 1)."""
+    code = BlockedCode.detect(build_rs_ldpc(8, 72, G))
+    assert (code.G, code.J, code.q) == (G, 72, 256) and bp_cuda.kernel_layout(code.J, code.q).unrolled
+    _, easy = _coverage_llrs(code, 10, 6.0, 0.01, seed=3)
+    _, hard = _coverage_llrs(code, 6, 2.0, 0.05, seed=4)
+    t = torch.from_numpy(np.concatenate([easy, hard])).to(dev)
+    for early_stop in (True, False):
+        k = bp_cuda.bp_decode_blocked(code, t, 12, early_stop=early_stop)
+        _same_bp(k, bp_cuda.bp_decode_blocked_ref(code, t, 12, early_stop=early_stop))
+
+
+def test_bp_kernel_deployed_code_more_words_than_sms(dev):
+    """133 words of the deployed code (the unrolled kernel), some of
+    them at the iteration cap: the last block starts when another ends."""
+    code = dna_storage_blocked()
+    assert bp_cuda.kernel_layout(code.J, code.q).unrolled
+    _, easy = _coverage_llrs(code, 100, 3.7, 0.02, seed=21)
+    _, hard = _coverage_llrs(code, 33, 1.5, 0.05, seed=22)
+    t = torch.from_numpy(np.concatenate([easy, hard])).to(dev)
+    k = bp_cuda.bp_decode_blocked(code, t, 25)
+    _same_bp(k, bp_cuda.bp_decode_blocked_ref(code, t, 25))
+    assert int((k.iterations == 25).sum()) > 0 and int(k.success.sum()) >= 100
 
 
 def test_bp_kernel_deployed_code_edge_cases(dev):
@@ -155,16 +210,12 @@ def test_decoder_zoo_on_device_matches_cpu(dev):
         assert ok.sum() > len(cw) // 2 and torch.equal(k.bits.cpu()[ok], c.bits[ok])
 
 
-def test_pairhmm_kernel_matches_twin(dev):
-    rng = np.random.default_rng(7)
-    xs, ys = _reads(rng, 64)
-    xs += ["", "A", "ACGTN" * 20]
-    ys += ["ACG", "", "ACGTA" * 20]
-    X, Y, lx, ly = encode_pairs(xs, ys, 160)
+def _check_pairhmm(dev, xs, ys, Lmax):
+    X, Y, lx, ly = encode_pairs(xs, ys, Lmax)
     args = [torch.as_tensor(a, device=dev) for a in (X, Y, lx, ly)]
     before = pairhmm_cuda.launches
-    pk, ek = pairhmm_cuda.post_ea(*args, 160)
-    pr, er = pairhmm_cuda.post_ea_ref(*args, 160)
+    pk, ek = pairhmm_cuda.post_ea(*args, Lmax)
+    pr, er = pairhmm_cuda.post_ea_ref(*args, Lmax)
     torch.cuda.synchronize()
     assert pairhmm_cuda.launches == before + 1
     torch.testing.assert_close(pk, pr, atol=1e-4, rtol=1e-4)
@@ -172,7 +223,35 @@ def test_pairhmm_kernel_matches_twin(dev):
     ea = ek.cpu().numpy()
     for p in range(len(xs)):
         q = pb[p, : lx[p], : ly[p]]
+        assert not pk[p, lx[p]:].any() and not pk[p, :, ly[p]:].any(), p  # zeros outside the box
         assert np.float32(mea_score(q) if q.size else 0.0) == ea[p], p
+        assert np.float32(native_lib.mea_score_native(q) if q.size else 0.0) == ea[p], p
+
+
+def test_pairhmm_kernel_matches_twin(dev):
+    rng = np.random.default_rng(7)
+    xs, ys = _reads(rng, 64)
+    xs += ["", "A", "ACGTN" * 20]
+    ys += ["ACG", "", "ACGTA" * 20]
+    _check_pairhmm(dev, xs, ys, 160)
+
+
+@pytest.mark.parametrize("Lmax,P", [(160, 1), (160, 6), (97, 1), (97, 7), (33, 5), (230, 3), (230, 6)])
+def test_pairhmm_kernel_strips_and_bands(dev, Lmax, P):
+    """Lengths that stress the wavefront's tiling: lx + 1 a multiple of 32
+    and one off it, reads of Lmax itself, empty reads, lx != ly, wildcards,
+    one pair, and pair counts that leave a block's last warps empty; at
+    Lmax = 230 reads above 191 nt are swept in two bands of rows."""
+    rng = np.random.default_rng(Lmax + P)
+    rs = lambda n: "".join("ACGTN"[k] for k in rng.choice(5, n, p=[0.24, 0.24, 0.24, 0.24, 0.04]))
+    lens = [(Lmax, Lmax - 7), (31, Lmax), (32, 5), (0, 9), (Lmax - 1, 0), (Lmax // 2, Lmax // 2 + 3), (1, 1)]
+    xs, ys = [], []
+    for lx, ly in lens[:P]:
+        x = rs(lx)
+        y = (x[: min(lx, ly)] + rs(max(0, ly - lx)))[:ly]  # a related read, so the posterior has mass
+        xs.append(x)
+        ys.append(y)
+    _check_pairhmm(dev, xs, ys, Lmax)
 
 
 def test_edit_distance_device_matches_native(dev):
