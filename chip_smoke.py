@@ -24,17 +24,21 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    (bit-equal);
 5. one full trial at the reference's scale: 272 codewords, 72,000
    simulated reads, ``decode_trial`` on the card through the device MSA
-   — every codeword must be recovered, through all three kernels (their
-   launch counts are reset just before and read just after), with at
+   — every codeword must be recovered, through K1, K2 and ``merge_dp``
+   (every launch count is reset just before and read just after), with at
    most 1 % of the MSA clusters handed to the host aligner;
 6. the same reads with ``DNA_LDPC_DEVICE_MSA=0`` (the host-aligner MSA
    flow) must give the same ``fail_first``, ``fail_final`` and
    ``n_anneal_iters``; the number of LLR-table entries that differ is
    printed;
-7. ``mea_dp``, the MEA-DP kernel of the device MSA, against its twin on
-   the BuildPost planes of the first progressive wave of a bucket-8
-   batch of 512 clusters (reads as in phase 3, Lmax = 160, Cmax = 192):
-   codes and positions bit-equal;
+7. the merge kernels of the device MSA against their twins on a bucket-8
+   batch of 512 clusters (reads as in phase 3, Lmax = 160, Cmax = 192),
+   codes and positions bit-equal: ``merge_dp`` (BuildPost + MEA DP + walk
+   from the pair posteriors) at the first progressive wave (single reads
+   a side) and at the last (several gapped reads a side), beside the time
+   of BuildPost into device memory followed by ``mea_dp``; and ``mea_dp``
+   (the same DP for a caller that holds the plane) on the first wave's
+   BuildPost planes, which must also give ``merge_dp``'s path;
 8. the same trial once more through the command line,
    ``python -m dna_ldpc_tpu_torch.cli simulate``, on codeword and oligo
    files written to a temporary directory in the reference's formats;
@@ -66,8 +70,11 @@ shapes and the iteration counts it returned) — and the share reached.
 The line before the last is a JSON object with each kernel's launches on
 the trial of phase 5 (K1: plus the waterfall of phase 9a), error against
 its twin, time beside the twin's and beside its bound, and
-``library_ms`` (null: no single PyTorch call computes any of the three);
-the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
+``library_ms`` (null: no single PyTorch call computes any of the four).
+``mea_dp``, the plane entry of the merge kernel, is on no driven path — the
+trial's merges launch ``merge_dp`` — so its count on the trial is 0 and it
+is held against its twin in phase 7 only. The
+last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -129,6 +136,58 @@ def _noisy_pairs(rng, n: int):
     """Read pairs of one strand each."""
     pairs = [_strand_reads(rng, 2) for _ in range(n)]
     return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+def _merge_waves(rng, dev, nb: int, C: int, Lmax: int, consistency_iters: int = 2):
+    """One device-MSA batch and its merges: C clusters of nb reads of one
+    strand each, pair posteriors from K2, UPGMA join orders. Yields
+    (k, margs, step) for a batched merge: the progressive waves
+    k = 0 .. nb - 2, then, as k = nb - 1, a refinement bipartition of the
+    aligned batch (even against odd reads). ``margs`` are the arguments of
+    ``mea_cuda.merge_walk``, ``step`` those of ``device_msa._merge_step``
+    for the same merge; the batch moves on by ``_merge_step`` between
+    yields."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import align as msa_align
+    from dna_ldpc_tpu_torch.ops.msa import device_msa
+
+    clusters = [_strand_reads(rng, nb) for _ in range(C)]
+    prs = msa_align.cluster_pairs(nb)
+    npair = len(prs)
+    posts, ea = msa_align._pair_posteriors(
+        [cl[i] for cl in clusters for i, _ in prs], [cl[j] for cl in clusters for _, j in prs], Lmax, dev
+    )
+    P = device_msa.assemble_transform(
+        posts, torch.arange(C * npair, device=dev), torch.ones(C * npair, dtype=torch.bool, device=dev),
+        torch.full((C,), 1.0 / nb, device=dev), nb, consistency_iters, C, Lmax,
+    )
+    del posts
+    waves = [
+        device_msa.wave_masks(
+            msa_align.upgma_join_order(msa_align._ea_dists(cl, ea[c * npair : (c + 1) * npair])), nb, nb
+        )
+        for c, cl in enumerate(clusters)
+    ]
+    Cmax = Lmax + device_msa.COLUMN_SLACK
+    Pblock = device_msa.build_pblock(P, nb)
+    del P
+    lens = torch.as_tensor([[len(r) for r in cl] for cl in clusters], device=dev)
+    cpos, width = device_msa._msa_init(lens, Cmax, Lmax)
+    live = torch.ones(C, dtype=torch.bool, device=dev)
+    even = (torch.arange(nb, device=dev) % 2 == 0).expand(C, nb)
+    for k in range(nb):
+        if k < nb - 1:
+            mA = torch.as_tensor(np.stack([w[0][k] for w in waves]), device=dev)
+            mB = torch.as_tensor(np.stack([w[1][k] for w in waves]), device=dev)
+        else:
+            mA, mB = even, ~even
+        cposA, wA = device_msa._project(cpos, mA, Cmax, Lmax)
+        cposB, wB = device_msa._project(cpos, mB, Cmax, Lmax)
+        step = (Pblock, cpos, width, mA, mB, live, Cmax, Lmax)
+        yield k, (Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, Lmax), step
+        cpos, width, _, _ = device_msa._merge_step(*step)
 
 
 def _coverage_llrs(rng, cw, cov_mean: float, eps: float, dev):
@@ -503,15 +562,15 @@ def main() -> int:
         MSA clusters, host-aligner fallbacks, wall seconds)."""
         bp_cuda.launches = 0
         pairhmm_cuda.launches = pairhmm_cuda.pairs = 0
-        mea_cuda.launches = 0
+        mea_cuda.launches = mea_cuda.merge_launches = 0
         msa_align.msa_clusters = msa_align.fallback_clusters = 0
         torch.cuda.synchronize()
         t0 = time.time()
-        res = trial_decode.decode_trial(reads, quals, cws, trial_decode.TrialConfig(device="cuda"))
+        res = trial_decode.decode_trial(reads, quals, cws, trial_decode.TrialConfig())
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {"bp_blocked": bp_cuda.launches, "pairhmm": pairhmm_cuda.launches,
-                    "mea_dp": mea_cuda.launches}
+                    "merge_dp": mea_cuda.merge_launches, "mea_dp": mea_cuda.launches}
         return res, llr_tables[-1], launches, msa_align.msa_clusters, msa_align.fallback_clusters, wall
 
     res, llr_dev, launches, n_msa, n_fb, wall = run_trial()
@@ -523,7 +582,7 @@ def main() -> int:
     print("[5] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in res.phase_times.items()))
     if res.fail_final or not np.array_equal(res.decoded_bits, cws):
         raise AssertionError(f"trial not recovered: fail_final {res.fail_final}")
-    if min(launches.values()) == 0:
+    if min(launches[name] for name in ("bp_blocked", "pairhmm", "merge_dp")) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if n_fb > 0.01 * n_msa:
         raise AssertionError(f"{n_fb} of {n_msa} MSA clusters fell back to the host aligner")
@@ -543,47 +602,56 @@ def main() -> int:
         if getattr(res0, name) != getattr(res, name):
             raise AssertionError(f"{name} differs between the device MSA and the host-aligner flow")
 
-    # ---- 7. mea_dp against its twin ------------------------------------------
-    rng7 = np.random.default_rng(8)
-    nb, C7 = 8, 512
-    clusters = [_strand_reads(rng7, nb) for _ in range(C7)]
-    prs = msa_align.cluster_pairs(nb)
-    npair = len(prs)
-    posts, ea = msa_align._pair_posteriors(
-        [cl[i] for cl in clusters for i, _ in prs], [cl[j] for cl in clusters for _, j in prs], Lmax, dev
-    )
-    P = device_msa.assemble_transform(
-        posts, torch.arange(C7 * npair, device=dev), torch.ones(C7 * npair, dtype=torch.bool, device=dev),
-        torch.full((C7,), 1.0 / nb, device=dev), nb, 2, C7, Lmax,
-    )
-    waves = [
-        device_msa.wave_masks(
-            msa_align.upgma_join_order(msa_align._ea_dists(cl, ea[c * npair : (c + 1) * npair])), nb, nb
-        )
-        for c, cl in enumerate(clusters)
-    ]
-    mA = torch.as_tensor(np.stack([w[0][0] for w in waves]), device=dev)
-    mB = torch.as_tensor(np.stack([w[1][0] for w in waves]), device=dev)
-    Cmax = Lmax + device_msa.COLUMN_SLACK
-    lens = torch.as_tensor([[len(r) for r in cl] for cl in clusters], device=dev)
-    cpos, _ = device_msa._msa_init(lens, Cmax, Lmax)
-    cposA, wA = device_msa._project(cpos, mA, Cmax, Lmax)
-    cposB, wB = device_msa._project(cpos, mB, Cmax, Lmax)
-    plane = device_msa._build_post(device_msa.build_pblock(P, nb), cposA, cposB, mA, mB, Cmax, Lmax)
-    codes_k, pos_k = mea_cuda.mea_walk(plane, wA, wB, Cmax)
-    codes_r, pos_r = mea_cuda.mea_walk_ref(plane, wA, wB, Cmax)
-    torch.cuda.synchronize()
-    mea_err = max((codes_k.int() - codes_r.int()).abs().max().item(), (pos_k - pos_r).abs().max().item())
-    if mea_err:
-        raise AssertionError(f"mea_dp differs from its twin (max abs {mea_err})")
-    path_len = (codes_k != 0).sum(1).float().mean().item()
-    mea_ms = _cuda_ms(lambda: mea_cuda.mea_walk(plane, wA, wB, Cmax), 20)
-    mea_plain = _cuda_ms(lambda: mea_cuda.mea_walk_ref(plane, wA, wB, Cmax), 2)
-    mea_bound, mea_by = roofline.mea_bound_ms(C7, Cmax, clock_mhz)
+    # ---- 7. the merge kernels against their twins ----------------------------
+    nb, C7, Cmax = 8, 512, Lmax + device_msa.COLUMN_SLACK
+    merge_err, merge_lines, merge_stats = 0, [], {}
+    for k, margs, _ in _merge_waves(np.random.default_rng(8), dev, nb, C7, Lmax):
+        if k in (0, nb - 2):
+            _, _, _, mA, mB, wA, wB, _, _ = margs
+            codes_k, pos_k = mea_cuda.merge_walk(*margs)
+            codes_r, pos_r = mea_cuda.merge_walk_ref(*margs)
+            torch.cuda.synchronize()
+            err = max((codes_k.int() - codes_r.int()).abs().max().item(), (pos_k - pos_r).abs().max().item())
+            if err:
+                raise AssertionError(f"merge_dp differs from its twin at wave {k} (max abs {err})")
+            merge_err = max(merge_err, err)
+            ms = _cuda_ms(lambda: mea_cuda.merge_walk(*margs), 20)
+            plain = _cuda_ms(lambda: mea_cuda.merge_walk_ref(*margs), 2)
+            composite = _cuda_ms(
+                lambda: mea_cuda.mea_walk(mea_cuda._build_post(*margs[:5], Cmax, Lmax), wA, wB, Cmax), 5)
+            nA, nB = mA.sum(1).tolist(), mB.sum(1).tolist()
+            bound, by = roofline.merge_bound_ms(nA, nB, wA.tolist(), wB.tolist(), Cmax, clock_mhz)
+            merge_lines.append(
+                f"[7] merge_dp vs twin, wave {k + 1} of {nb - 1}: {C7} clusters of {nb} reads, "
+                f"{sum(nA) / C7:.2f} x {sum(nB) / C7:.2f} reads a side, mean widths {wA.float().mean().item():.1f} x "
+                f"{wB.float().mean().item():.1f}, Cmax={Cmax}, mean path length "
+                f"{(codes_k != 0).sum(1).float().mean().item():.1f}; codes and positions equal; kernel {ms:.3f} ms, "
+                f"BuildPost into device memory + mea_dp {composite:.3f} ms, twin {plain:.3f} ms per merge; bound "
+                f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f} % reached")
+            if k == 0:
+                merge_stats = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+                # mea_dp, the entry for a caller that holds the plane: the same clusters' BuildPost planes
+                plane = mea_cuda._build_post(*margs[:5], Cmax, Lmax)
+                codes_p, pos_p = mea_cuda.mea_walk(plane, wA, wB, Cmax)
+                codes_pr, pos_pr = mea_cuda.mea_walk_ref(plane, wA, wB, Cmax)
+                torch.cuda.synchronize()
+                mea_err = max((codes_p.int() - codes_pr.int()).abs().max().item(),
+                              (pos_p - pos_pr).abs().max().item())
+                if mea_err:
+                    raise AssertionError(f"mea_dp differs from its twin (max abs {mea_err})")
+                if not (torch.equal(codes_p, codes_k) and torch.equal(pos_p, pos_k)):
+                    raise AssertionError("mea_dp on the BuildPost plane and merge_dp give different paths")
+                path_len = (codes_p != 0).sum(1).float().mean().item()
+                mea_ms = _cuda_ms(lambda: mea_cuda.mea_walk(plane, wA, wB, Cmax), 20)
+                mea_plain = _cuda_ms(lambda: mea_cuda.mea_walk_ref(plane, wA, wB, Cmax), 2)
+                mea_bound, mea_by = roofline.mea_bound_ms(wA.tolist(), wB.tolist(), Cmax, clock_mhz)
+                del plane
     print(f"[7] mea_dp vs twin: {C7} clusters of {nb} reads, first progressive wave, Cmax={Cmax}, "
-          f"mean path length {path_len:.1f}; codes and positions equal; kernel {mea_ms:.3f} ms, twin "
-          f"{mea_plain:.3f} ms per merge of {C7} clusters; bound {mea_bound:.4f} ms ({mea_by}), "
-          f"{100 * mea_bound / mea_ms:.1f} % reached")
+          f"mean path length {path_len:.1f}; codes and positions equal, and equal to merge_dp's; kernel "
+          f"{mea_ms:.3f} ms, twin {mea_plain:.3f} ms per merge of {C7} clusters; bound {mea_bound:.4f} ms "
+          f"({mea_by}), {100 * mea_bound / mea_ms:.1f} % reached")
+    print("\n".join(merge_lines))
+    del margs
 
     # ---- 8. the same trial through the command line ------------------------
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -595,7 +663,7 @@ def main() -> int:
         proc = subprocess.run(
             [sys.executable, "-m", "dna_ldpc_tpu_torch.cli", "simulate", "--rs", "72000", "--start", "0",
              "--end", "1", "--epsil", "0.02", "--seed", "7", "--oligos", os.path.join(d, "final_DNA.txt"),
-             "--codeword-dir", d, "--out-dir", d, "--device", "cuda"],
+             "--codeword-dir", d, "--out-dir", d],
             cwd=REPO, capture_output=True, text=True, timeout=600,
         )
         cli_s = time.time() - t0
@@ -626,6 +694,9 @@ def main() -> int:
          "replaces": "dna_ldpc_tpu/ops/msa/device_msa.py:212", "launches": launches["mea_dp"],
          "max_abs_err": float(mea_err), "ms": mea_ms, "plain_ms": mea_plain, "bound_ms": mea_bound,
          "bound_by": mea_by, "library_ms": None},
+        {"name": "merge_dp", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/mea_dp.cu",
+         "replaces": "dna_ldpc_tpu/ops/msa/device_msa.py:175", "launches": launches["merge_dp"],
+         "max_abs_err": float(merge_err), **merge_stats, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,9 +25,8 @@ import os
 import sys
 
 import numpy as np
-import torch
-
 from .pipeline.simulate import ChannelModel
+from .utils.device import DEFAULT_DEVICE, require_device
 
 
 def _load_codewords(codeword_dir: str) -> np.ndarray:
@@ -41,17 +40,10 @@ def _load_codewords(codeword_dir: str) -> np.ndarray:
     )
 
 
-def _device(name: str) -> str:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {name!r} requested but no CUDA device is available")
-    return str(dev)
-
-
 def _config(args):
     from .pipeline.decode import TrialConfig
 
-    return TrialConfig(epsil=args.epsil, max_iter=args.max_iter, device=_device(args.device))
+    return TrialConfig(epsil=args.epsil, max_iter=args.max_iter, device=str(require_device(args.device)))
 
 
 def _report(result, args, trial: int) -> int:
@@ -114,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--max-iter", type=int, default=200, help="BP iterations")
     common.add_argument("--codeword-dir", default=".", help="codeword_n18432_m1860_* dir")
     common.add_argument("--out-dir", default=".", help="where to write result files")
-    common.add_argument("--device", default="cuda", help="torch device the trial runs on")
+    common.add_argument("--device", default=DEFAULT_DEVICE, help="torch device the trial runs on")
 
     d = sub.add_parser("decode", parents=[common], help="decode sampled-read trial files")
     d.add_argument("--data-dir", default=".", help="dir with <rs>_RS_<t>.txt files")

@@ -93,6 +93,8 @@ def load() -> ctypes.CDLL:
             lib.pairhmm_launch.restype = ci
             lib.mea_dp_launch.argtypes = [vp] * 5 + [ci, ci, vp]
             lib.mea_dp_launch.restype = ci
+            lib.merge_dp_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+            lib.merge_dp_launch.restype = ci
             lib.dna_cuda_error_string.argtypes = [ci]
             lib.dna_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

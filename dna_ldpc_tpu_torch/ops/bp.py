@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models.ldpc_graph import GraphTensors, LdpcGraph
+from ..utils.device import DEFAULT_DEVICE, require_device
 
 
 @dataclasses.dataclass
@@ -199,10 +200,10 @@ def bp_decode(
 
 
 def decode_llrs(
-    graph: LdpcGraph, llrs: np.ndarray, max_iter: int = 200, device="cpu", early_stop: bool = True
+    graph: LdpcGraph, llrs: np.ndarray, max_iter: int = 200, device=DEFAULT_DEVICE, early_stop: bool = True
 ) -> BpResult:
     """Host entry: accepts [N] or [B, N] numpy LLRs, decodes on ``device``."""
-    llr = torch.as_tensor(np.atleast_2d(np.asarray(llrs, dtype=np.float32)), device=device)
+    llr = torch.as_tensor(np.atleast_2d(np.asarray(llrs, dtype=np.float32)), device=require_device(device))
     return bp_decode(graph, llr, max_iter=max_iter, early_stop=early_stop)
 
 

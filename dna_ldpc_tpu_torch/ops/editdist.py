@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT_DEVICE, require_device
+
 
 def edit_distance_pairs(
     seqs: np.ndarray, lengths: np.ndarray, pairs_a: np.ndarray, pairs_b: np.ndarray
@@ -84,17 +86,17 @@ def edit_distance_pairs(
 
 def edit_distance_pairs_device(
     seqs: np.ndarray, lengths: np.ndarray, pairs_a: np.ndarray, pairs_b: np.ndarray,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> np.ndarray:
     """The same distances as ``edit_distance_pairs``, computed on
     ``device``: the read matrix and pair lists are uploaded once and every
     pair's DP advances together, one antidiagonal per step. Row i of a
     pair's slab is DP cell (i, d - i); the B operand is kept diagonal-
     aligned by one roll plus one inserted column per step."""
+    dev = require_device(device)
     P = len(pairs_a)
     if P == 0:
         return np.zeros(0, dtype=np.int32)
-    dev = torch.device(device)
     S = torch.as_tensor(np.ascontiguousarray(seqs, np.uint8), device=dev)
     lens = torch.as_tensor(np.asarray(lengths, np.int64), device=dev)
     pa = torch.as_tensor(np.asarray(pairs_a, np.int64), device=dev)

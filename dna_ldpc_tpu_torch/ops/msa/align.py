@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ... import native_lib
+from ...utils.device import DEFAULT_DEVICE, require_device
 from .consistency import consistency_core
 from .pairhmm import batch_post_ea, encode_pairs, padded_lmax
 from .pairhmm_cuda import kernel_layout, post_ea
@@ -149,7 +150,8 @@ def align(
         return [(0, seqs[0])]
     pairs = cluster_pairs(n)
     if pair_posts is None:
-        post, _ea, lx, ly, _L = batch_post_ea([seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs])
+        post, _ea, lx, ly, _L = batch_post_ea([seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs],
+                                                device="cpu")
         post = post.to(torch.bfloat16).to(torch.float32).numpy()
         pair_posts = [post[p, : lx[p], : ly[p]] for p in range(len(pairs))]
     if pair_dists is None:
@@ -168,7 +170,7 @@ def align_clusters(
     refine_iters: int = REFINE_ITERS,
     consistency_iters: int = CONSISTENCY_ITERS,
     seed: int = 0,
-    device="cpu",
+    device=DEFAULT_DEVICE,
     timings: dict | None = None,
 ) -> list[list[tuple[int, str]]]:
     """Align many clusters with the device stages batched across clusters
@@ -180,6 +182,7 @@ def align_clusters(
     in the JAX package (``dna_ldpc_tpu/ops/msa/align.py:554-566``).
     ``timings`` accumulates seconds per stage."""
     global msa_clusters
+    require_device(device)
     if timings is None:
         timings = {}
     msa_clusters += sum(1 for seqs in clusters if len(seqs) >= 2)

@@ -13,8 +13,8 @@ Reference semantics (MUSCLE v5, vendored in the reference):
   P[c1, c2] = sum over (s1 in A, s2 in B) of the pair posterior at the
   letter positions mapped to columns c1/c2;
 - ``CalcAlnFlat`` + ``TraceBackFlat``: MEA max-DP with tie preference
-  B >= X >= Y, boundary rows/cols fixed to X/Y — the ``mea_dp`` CUDA
-  kernel on the card (``mea_cuda.py``);
+  B >= X >= Y, boundary rows/cols fixed to X/Y — with BuildPost one CUDA
+  kernel on the card, ``merge_dp`` (``mea_cuda.merge_walk``);
 - ``AlignAlns`` (alnalnsflat.cpp:7-44): gap insertion along the path;
 - ``MPCFlat::Refine`` / ``RefineIter`` (refineflat.cpp:4-31): seeded
   random bipartitions, re-align the two projected sub-MSAs; a cluster
@@ -24,11 +24,12 @@ Representation: per cluster c and sequence s, ``cpos[c, s, u]`` holds the
 letter position of s at column u of s's current profile, or the sentinel
 L for a gap. Projection compacts the columns where a selected row has a
 letter (cumsum + scatter + gather); BuildPost gathers the rows and columns
-of a per-cluster block matrix of the pair posteriors (``build_pblock``),
-where the JAX package multiplies by one-hot matrices on the TPU's matrix
-unit — the same values: the first sum is rounded to bf16 as the JAX
-package rounds its first product, and the second stays f32. Gap insertion
-remaps cpos through the path's column maps.
+of a per-cluster block matrix of the pair posteriors (``build_pblock``) —
+inside the merge kernel on the card, as eager gathers in its twin — where
+the JAX package multiplies by one-hot matrices on the TPU's matrix unit:
+the same values, the first sum rounded to bf16 as the JAX package rounds
+its first product, the second kept in f32. Gap insertion remaps cpos
+through the path's column maps.
 
 Exactness: the MEA recurrence, tie preference, boundary codes, projection
 and convergence rule match the host path (``align()`` + native/ingest.cpp)
@@ -44,7 +45,7 @@ import torch
 
 from . import align
 from .consistency import consistency_core
-from .mea_cuda import CB, CX, CY, mea_walk
+from .mea_cuda import CB, CX, CY, merge_walk
 
 # cluster-size buckets of the device MSA (n pads up to the next bucket;
 # zero pair blocks and all-false masks make pad slots inert)
@@ -57,9 +58,11 @@ COLUMN_SLACK = 32
 
 def cluster_bytes(nb: int, Lpad: int) -> int:
     """Device bytes one cluster of bucket nb holds during a batch: the
-    assembled bf16 pairs, the bf16 Pblock and BuildPost's f32 first sum."""
+    assembled bf16 pairs and the bf16 Pblock. The merge kernel builds its
+    operand on chip; its twin on the CPU still makes BuildPost's f32 first
+    sum, about a fifth more at bucket 8."""
     L1 = Lpad + 1
-    return nb * (nb - 1) // 2 * L1 * L1 * 2 + (nb * L1) ** 2 * 2 + (Lpad + COLUMN_SLACK) * nb * L1 * 4
+    return nb * (nb - 1) // 2 * L1 * L1 * 2 + (nb * L1) ** 2 * 2
 
 
 def wave_masks(joins: list[tuple[int, int]], n_true: int, nb: int):
@@ -117,31 +120,6 @@ def build_pblock(P, nb: int):
     return out.view(C, nb * L1, nb * L1)
 
 
-def _build_post(Pblock, cposA, cposB, mA, mB, Cmax: int, L: int):
-    """Profile-profile posterior (BuildPost): [C, Cmax, Cmax] f32.
-
-    T[c, x, (s2, l2)] = sum over s1 in A of Pblock[c, s1*(L+1) +
-    cposA[c, s1, x], (s2, l2)] in f32, rounded to bf16; then post[c, x, y]
-    = sum over s2 in B of T[c, x, s2*(L+1) + cposB[c, s2, y]] in f32. Gap
-    sentinels and rows outside A (columns outside B) read the zero gap
-    row (column) L of block 0."""
-    C, nb, _ = cposA.shape
-    L1 = L + 1
-    K = nb * L1
-    base = torch.arange(nb, device=cposA.device)[None, :, None] * L1
-    rows = torch.where(mA[:, :, None], cposA[:, :, :Cmax].long() + base, L)
-    cols = torch.where(mB[:, :, None], cposB[:, :, :Cmax].long() + base, L)
-    T = torch.zeros((C, Cmax, K), dtype=torch.float32, device=Pblock.device)
-    for s in range(nb):
-        T += Pblock.gather(1, rows[:, s, :, None].expand(C, Cmax, K))
-    Tb = T.to(torch.bfloat16)
-    del T
-    post = torch.zeros((C, Cmax, Cmax), dtype=torch.float32, device=Pblock.device)
-    for s in range(nb):
-        post += Tb.gather(2, cols[:, s, None, :].expand(C, Cmax, Cmax))
-    return post
-
-
 def _merge_step(Pblock, cpos, width, mA, mB, upd_ok, Cmax: int, L: int):
     """One batched merge (progressive wave or refine re-alignment).
     Returns (cpos', width', changed [C] bool, overflow_now [C] bool)."""
@@ -150,8 +128,7 @@ def _merge_step(Pblock, cpos, width, mA, mB, upd_ok, Cmax: int, L: int):
 
     cposA, wA = _project(cpos, mA, Cmax, L)
     cposB, wB = _project(cpos, mB, Cmax, L)
-    post = _build_post(Pblock, cposA, cposB, mA, mB, Cmax, L)
-    codes, pos = mea_walk(post, wA, wB, Cmax)
+    codes, pos = merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L)
     pos = pos.long()
 
     valid = codes != 0

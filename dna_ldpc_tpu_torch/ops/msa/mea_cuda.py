@@ -1,14 +1,35 @@
-"""MEA max-DP + traceback of the device MSA's merges: the CUDA kernel
-``mea_dp`` and its plain torch twin.
+"""The merge of the device MSA — BuildPost, the MEA max-DP and its
+traceback — as hand-written CUDA kernels, and their plain torch twins.
 
-``mea_walk`` replaces the XLA scans ``_mea_forward`` + ``_walk`` of
-``dna_ldpc_tpu/ops/msa/device_msa.py`` (:212, :257) — not a Pallas kernel
-in the JAX package, but in eager torch each merge would be 2 Cmax
-sequential steps of ~40 small launches. On CUDA tensors it launches
-``csrc/mea_dp.cu`` (one thread block per cluster, one thread per DP lane,
-the choice-code plane in shared memory, the walk by one thread); on CPU
-tensors it runs ``mea_walk_ref``, the eager scan. A CUDA tensor launches
-the kernel or raises.
+Two entries share one kernel body (``csrc/mea_dp.cu``):
+
+- ``merge_walk`` (kernel ``merge_dp``) takes the per-cluster block matrix
+  of pair posteriors and the two projected operands and returns the MEA
+  path of each cluster's merge. It replaces the XLA program ``_build_post``
+  -> ``_mea_forward`` -> ``_walk`` of ``dna_ldpc_tpu/ops/msa/device_msa.py``
+  (:175, :212, :257; one-hot matmuls and two scans in the JAX package, not
+  a Pallas kernel). The kernel reads its operand straight from ``Pblock``,
+  so neither the profile-profile posterior ``post [C, Cmax, Cmax]`` nor
+  BuildPost's first sum ``T [C, Cmax, nb (L + 1)]`` exists in device
+  memory.
+- ``mea_walk`` (kernel ``mea_dp``) is the same DP and walk for a caller
+  that holds the posterior plane already.
+
+On CUDA tensors each launches its kernel or raises; on CPU tensors it runs
+its twin (``merge_walk_ref`` = ``_build_post`` + ``mea_walk_ref``, the
+eager gathers and scans).
+
+BuildPost, per cell (x, y) of the operands' (wA x wB) box::
+
+    post[x, y] = sum over s2 in B, ascending, in f32, of
+                   f32(bf16(sum over s1 in A, ascending, in f32, of
+                            Pblock[c, s1 (L+1) + cposA[c, s1, x],
+                                      s2 (L+1) + cposB[c, s2, y]]))
+
+(a gap sentinel ``cpos = L`` reads the zero gap row or column of its own
+block; the twin adds the zero gap row of block 0 for every sequence
+outside A or B, which changes no sum of non-negative values, so the kernel
+loops over the members only).
 
 The DP (MUSCLE's CalcAlnFlat + TraceBackFlat): cell (i, j) of the
 (Cmax + 1) x (Cmax + 1) plane takes B = S(i-1, j-1) + post[i-1, j-1],
@@ -16,7 +37,10 @@ X = S(i-1, j), Y = S(i, j-1) with the tie order B >= X >= Y; row i = 0 is
 'Y' and column j = 0 'X', both of value 0; cells off the plane (j < 0) are
 NEG = -3e38 with code 0. The walk starts at (wA, wB) and emits, per
 diagonal d = i + j, the code and lane of the cell it visits (0 where the
-path skips the diagonal).
+path skips the diagonal). Only the box [0..wA] x [0..wB] can reach the
+output — the walk moves to smaller i and j only, and a cell of the box
+depends on cells of the box only — so the kernel sweeps the box alone; the
+twin sweeps the whole plane.
 """
 
 from __future__ import annotations
@@ -27,7 +51,37 @@ import torch
 CB, CX, CY = 1, 2, 3          # path step codes ('B', 'X', 'Y'); 0 = none
 NEG = float(np.float32(-3.0e38))
 
-launches = 0  # kernel launches since the last reset (main-path evidence)
+launches = 0        # mea_dp launches since the last reset (main-path evidence)
+merge_launches = 0  # merge_dp launches since the last reset
+
+# the kernel's lanes hold strips of up to MAX_STRIP columns of the box
+MAX_STRIP = 9
+MAX_CMAX = 32 * MAX_STRIP - 1
+
+
+def _build_post(Pblock, cposA, cposB, mA, mB, Cmax: int, L: int):
+    """Profile-profile posterior (BuildPost): [C, Cmax, Cmax] f32.
+
+    T[c, x, (s2, l2)] = sum over s1 in A of Pblock[c, s1*(L+1) +
+    cposA[c, s1, x], (s2, l2)] in f32, rounded to bf16; then post[c, x, y]
+    = sum over s2 in B of T[c, x, s2*(L+1) + cposB[c, s2, y]] in f32. Gap
+    sentinels and rows outside A (columns outside B) read the zero gap
+    row (column) L of block 0."""
+    C, nb, _ = cposA.shape
+    L1 = L + 1
+    K = nb * L1
+    base = torch.arange(nb, device=cposA.device)[None, :, None] * L1
+    rows = torch.where(mA[:, :, None], cposA[:, :, :Cmax].long() + base, L)
+    cols = torch.where(mB[:, :, None], cposB[:, :, :Cmax].long() + base, L)
+    T = torch.zeros((C, Cmax, K), dtype=torch.float32, device=Pblock.device)
+    for s in range(nb):
+        T += Pblock.gather(1, rows[:, s, :, None].expand(C, Cmax, K))
+    Tb = T.to(torch.bfloat16)
+    del T
+    post = torch.zeros((C, Cmax, Cmax), dtype=torch.float32, device=Pblock.device)
+    for s in range(nb):
+        post += Tb.gather(2, cols[:, s, None, :].expand(C, Cmax, Cmax))
+    return post
 
 
 def mea_walk_ref(post, wA, wB, Cmax: int):
@@ -88,43 +142,87 @@ def mea_walk_ref(post, wA, wB, Cmax: int):
     return codes, pos
 
 
-def _mea_walk_cuda(post, wA, wB, Cmax: int):
-    global launches
+def merge_walk_ref(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
+    """Plain torch twin of ``merge_dp``: BuildPost into device memory, then
+    the full-plane DP and walk."""
+    return mea_walk_ref(_build_post(Pblock, cposA, cposB, mA, mB, Cmax, L), wA, wB, Cmax)
+
+
+def _one_device(*tensors) -> torch.device:
+    """The tensors' common device: "cpu" (the twin runs) or "cuda" (the
+    kernel runs); anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _launch(entry: str, C: int, dims: tuple, Cmax: int, dev, args) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and launch ``entry`` of the kernel library on
+    ``dev``'s current stream: ``entry(*args, codes, pos, C, *dims, Cmax,
+    stream)``."""
     from ... import cuda_lib
 
-    C, D = post.shape[0], 2 * Cmax
-    if Cmax + 1 > 1024:
-        raise ValueError(f"Cmax={Cmax} exceeds one block's threads")
-    dev = post.device
-    post = post.to(torch.float32).contiguous()
-    wA = wA.to(torch.int32).contiguous()
-    wB = wB.to(torch.int32).contiguous()
-    codes = torch.empty((C, D), dtype=torch.uint8, device=dev)
-    pos = torch.empty((C, D), dtype=torch.int32, device=dev)
-    lib = cuda_lib.load()
-    with torch.cuda.device(dev):
-        status = lib.mea_dp_launch(
-            post.data_ptr(), wA.data_ptr(), wB.data_ptr(), codes.data_ptr(), pos.data_ptr(),
-            C, Cmax, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    cuda_lib.check(status, "mea_dp_launch")
+    if Cmax > MAX_CMAX:
+        raise ValueError(f"Cmax={Cmax} exceeds the kernel's {MAX_STRIP} columns per lane (Cmax <= {MAX_CMAX})")
+    codes = torch.empty((C, 2 * Cmax), dtype=torch.uint8, device=dev)
+    pos = torch.empty((C, 2 * Cmax), dtype=torch.int32, device=dev)
     if C:
-        launches += 1
+        with torch.cuda.device(dev):
+            status = getattr(cuda_lib.load(), entry)(
+                *(a.data_ptr() for a in args), codes.data_ptr(), pos.data_ptr(), C, *dims, Cmax,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        cuda_lib.check(status, entry)
     return codes, pos
 
 
 def mea_walk(post, wA, wB, Cmax: int):
-    """MEA path of each cluster's merge: the ``mea_dp`` kernel on CUDA
-    tensors, the plain twin on CPU tensors (module docstring)."""
+    """MEA path of each cluster's merge from its posterior plane: the
+    ``mea_dp`` kernel on CUDA tensors, the plain twin on CPU tensors
+    (module docstring)."""
+    global launches
     C = post.shape[0]
     if post.shape != (C, Cmax, Cmax) or wA.shape != (C,) or wB.shape != (C,):
         raise ValueError("post must be [C, Cmax, Cmax] and wA, wB [C]")
-    devs = {t.device for t in (post, wA, wB)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
-    dev = post.device
+    dev = _one_device(post, wA, wB)
     if dev.type == "cpu":
         return mea_walk_ref(post, wA, wB, Cmax)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return _mea_walk_cuda(post, wA, wB, Cmax)
+    args = (post.to(torch.float32).contiguous(), wA.to(torch.int32).contiguous(), wB.to(torch.int32).contiguous())
+    out = _launch("mea_dp_launch", C, (), Cmax, dev, args)
+    launches += bool(C)
+    return out
+
+
+def merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
+    """MEA path of each cluster's merge of the profiles A and B, straight
+    from the pair posteriors: the ``merge_dp`` kernel on CUDA tensors, the
+    plain twin on CPU tensors (module docstring).
+
+    Pblock: [C, nb (L+1), nb (L+1)] bf16 (``device_msa.build_pblock``);
+    cposA, cposB: [C, nb, Cmax+1] int32 projected column maps (gap = L);
+    mA, mB: [C, nb] bool membership; wA, wB: [C] int32 operand widths.
+    Returns (codes [C, 2 Cmax] uint8, pos [C, 2 Cmax] int32) indexed by
+    diagonal d - 1, as ``mea_walk`` does."""
+    global merge_launches
+    C, nb = mA.shape
+    K = nb * (L + 1)
+    if (Pblock.shape != (C, K, K) or Pblock.dtype != torch.bfloat16 or cposA.shape != (C, nb, Cmax + 1)
+            or cposB.shape != cposA.shape or mB.shape != (C, nb) or wA.shape != (C,) or wB.shape != (C,)):
+        raise ValueError("Pblock must be [C, nb (L+1), nb (L+1)] bf16, cposA/cposB [C, nb, Cmax+1], mA/mB [C, nb], "
+                         "wA/wB [C]")
+    if mA.dtype != torch.bool or mB.dtype != torch.bool:
+        raise ValueError("mA and mB must be bool")
+    dev = _one_device(Pblock, cposA, cposB, mA, mB, wA, wB)
+    if dev.type == "cpu":
+        return merge_walk_ref(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L)
+    if nb > 32 or K > 65535:
+        raise ValueError(f"nb={nb}, L={L}: the kernel takes at most 32 sequences and 65535 rows of Pblock")
+    args = (Pblock.contiguous(), cposA.to(torch.int32).contiguous(), cposB.to(torch.int32).contiguous(),
+            mA.contiguous(), mB.contiguous(), wA.to(torch.int32).contiguous(), wB.to(torch.int32).contiguous())
+    out = _launch("merge_dp_launch", C, (nb, L), Cmax, dev, args)
+    merge_launches += bool(C)
+    return out

@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils.device import DEFAULT_DEVICE, require_device
 from ...utils.dna import seqs_to_matrix
 
 LOG_ZERO = -1e30
@@ -117,7 +118,7 @@ def encode_pairs(seqs_x, seqs_y, Lmax: int):
     return X, Y, lx, ly
 
 
-def batch_post_ea(seqs_x, seqs_y, Lmax: int | None = None, device="cpu"):
+def batch_post_ea(seqs_x, seqs_y, Lmax: int | None = None, device=DEFAULT_DEVICE):
     """Match posteriors and EA scores for read pairs (x_p, y_p).
 
     Returns (post [P, Lmax, Lmax] f32 on ``device`` — cell (i, j) of pair p
@@ -125,10 +126,10 @@ def batch_post_ea(seqs_x, seqs_y, Lmax: int | None = None, device="cpu"):
     ``device``, lx [P], ly [P], Lmax)."""
     from .pairhmm_cuda import post_ea
 
+    dev = require_device(device)
     if Lmax is None:
         Lmax = padded_lmax(max((len(s) for s in list(seqs_x) + list(seqs_y)), default=1))
     X, Y, lx, ly = encode_pairs(seqs_x, seqs_y, Lmax)
-    dev = torch.device(device)
     post, ea = post_ea(
         torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev),
         torch.as_tensor(lx, device=dev), torch.as_tensor(ly, device=dev), Lmax,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models.ldpc_graph import LdpcGraph
+from ..utils.device import DEFAULT_DEVICE, require_device
 from ..utils.io_formats import SparseBinaryMatrix
 from .bp import bp_posteriors
 
@@ -74,7 +75,7 @@ def product_decode(
     outer_iters: int = 8,
     inner_iters: int = 10,
     damping: float = 0.5,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ):
     """Iterative soft decoding of a product code on ``device``.
 
@@ -86,6 +87,7 @@ def product_decode(
     Returns (bits [B, n2, n1] uint8, satisfied [B] bool) where satisfied
     checks both component syndromes of the final hard decisions.
     """
+    dev = require_device(device)
     llr = np.asarray(llr, np.float32)
     if llr.ndim == 2:
         llr = llr[None]
@@ -93,7 +95,7 @@ def product_decode(
     if graph1.n_vars != n1 or graph2.n_vars != n2:
         raise ValueError(f"llr [B, n2, n1] = {llr.shape} does not match the component codes")
 
-    ch = torch.as_tensor(llr, device=device)
+    ch = torch.as_tensor(llr, device=dev)
     ext_col = torch.zeros_like(ch)  # extrinsic from column decoder
 
     for _ in range(outer_iters):

@@ -29,6 +29,7 @@ import torch
 
 from ..models.ldpc_graph import LdpcGraph
 from ..models.mod2 import random_codewords
+from ..utils.device import DEFAULT_DEVICE, require_device
 from ..utils.io_formats import SparseBinaryMatrix
 from . import channels
 from .bp import bp_decode
@@ -49,7 +50,7 @@ class ErrorCase:
     key_data: tuple           # (seed, batch index) of the batch's generator
     slot: int                 # position within the batch
     codeword_idx: int
-    device: str = "cpu"       # device type of the generator ("cpu" / "cuda")
+    device: str               # device type of the generator ("cpu" / "cuda")
 
     def to_record(self) -> dict:
         return {
@@ -104,11 +105,10 @@ class SimConfig:
     shorten_positions: tuple = ()    # DNA_main.cpp:1472-1520
     save_error_cases: int = 0     # keep up to this many replayable failures
     track_position_ber: bool = False  # POSITION_BER_... dumps (:1132-1160)
-    device: str = "cpu"           # where the channel draws and decoders run
+    device: str = DEFAULT_DEVICE  # where the channel draws and decoders run
 
     def __post_init__(self):
-        if torch.device(self.device).type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device!r} requested but no CUDA device is available")
+        require_device(self.device)
 
 
 def batch_generator(seed: int, batch_index: int, device) -> torch.Generator:
@@ -258,7 +258,7 @@ def load_error_cases(path: str) -> list[ErrorCase]:
 def run_simulation(
     H: SparseBinaryMatrix,
     params: list[float],
-    config: SimConfig = SimConfig(),
+    config: SimConfig | None = None,
     n_codewords: int = 64,
     graph: LdpcGraph | None = None,
 ) -> list[PointResult]:
@@ -268,6 +268,7 @@ def run_simulation(
     shuffle whose blocked structure ``from_sparse`` cannot see, so pass
     ``pipeline.decode.deployed_graph()`` to decode it with the fused BP
     decoder."""
+    config = config or SimConfig()
     graph = graph if graph is not None else LdpcGraph.from_sparse(H)
     rate = (H.n_cols - H.n_rows) / H.n_cols
     rng = np.random.default_rng(config.seed)

@@ -39,6 +39,7 @@ from ..models.blocked import dna_storage_blocked
 from ..models.ldpc_graph import LdpcGraph
 from ..models.rs_ldpc import dna_storage_pchk
 from ..ops.bp import bp_decode
+from ..utils.device import DEFAULT_DEVICE, require_device
 from .llr import compute_trial_llrs, rs_filter_reads
 
 ERASURE_THRESHOLD = 140  # decoder.py:591
@@ -51,7 +52,10 @@ class TrialConfig:
     anneal_step: float = 0.0005
     anneal_floor: float = 0.001
     strict_reference_failure_tracking: bool = False
-    device: str = "cpu"          # where BP, the pair-HMM and the MSA stages run
+    device: str = DEFAULT_DEVICE  # where BP, the pair-HMM and the MSA stages run
+
+    def __post_init__(self):
+        require_device(self.device)
 
 
 @dataclass
@@ -86,7 +90,7 @@ def anneal_decode(
     graph: LdpcGraph,
     soft: np.ndarray,
     codewords: np.ndarray,
-    config: TrialConfig = TrialConfig(),
+    config: TrialConfig | None = None,
     phase: dict | None = None,
     resume: tuple[np.ndarray, list[int], list[int], int] | None = None,
     save_cb=None,
@@ -102,6 +106,7 @@ def anneal_decode(
     the annealing loop at the epsilon it had reached. ``save_cb(dec,
     fail_first, fail, n_iters)``, when given, is invoked after the first
     decode and after every annealing round."""
+    config = config or TrialConfig()
     phase = phase if phase is not None else {}
     if resume is not None:
         dec, fail_first, fail, n_iters = resume
@@ -150,7 +155,7 @@ def decode_trial(
     reads: Sequence[str],
     quals: Sequence[str | int],
     codewords: np.ndarray,
-    config: TrialConfig = TrialConfig(),
+    config: TrialConfig | None = None,
     graph: LdpcGraph | None = None,
     checkpoint_path: str | None = None,
 ) -> TrialResult:
@@ -165,6 +170,7 @@ def decode_trial(
     updated after the first decode and after every annealing round."""
     from .checkpoint import TrialCheckpoint
 
+    config = config or TrialConfig()
     t_start = time.time()
     graph = graph or deployed_graph()
     phase = {}

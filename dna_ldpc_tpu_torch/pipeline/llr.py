@@ -46,6 +46,7 @@ from .. import native_lib
 from ..models.codebook import N_STRANDS, PAYLOAD_BITS, PAYLOAD_NT, codebook_rank
 from ..models.rs_index import decode_index_bits
 from ..utils import dna
+from ..utils.device import DEFAULT_DEVICE, require_device
 
 EDIT_PREFILTER_THRESHOLD = 15  # decoder.py:182 "temp < 15"
 Q_LOW = 53                     # decoder.py:294 (Phred+33 '5' ~ Q20)
@@ -128,13 +129,14 @@ def _count_llr(rows: list[str], rq: list[int], mag: float) -> np.ndarray:
 def compute_trial_llrs(
     filtered: FilteredReads,
     epsil: float,
-    device="cpu",
+    device=DEFAULT_DEVICE,
     timings: dict | None = None,
 ) -> np.ndarray:
     """Full [18432, 272] LLR table for one trial (erasure strands zero).
     Countable clusters (all-136 multi-read, single reads) are tallied in
     one native pass; mixed-length clusters take the pre-filter + MSA path
     on ``device``."""
+    require_device(device)
     if timings is None:
         timings = {}
     out = np.zeros((N_STRANDS, PAYLOAD_BITS), dtype=np.float64)
@@ -180,7 +182,7 @@ def _edit_distances(filtered: FilteredReads, pa: np.ndarray, pb: np.ndarray, dev
 
 def _process_mixed_clusters_batched(
     filtered: FilteredReads, starts, ends, strands, pending, epsil: float,
-    out: np.ndarray, device="cpu", timings: dict | None = None,
+    out: np.ndarray, device=DEFAULT_DEVICE, timings: dict | None = None,
 ) -> None:
     """Mixed-length clusters, vectorized across the trial: one batched
     edit-distance pass for every cluster's pre-filter pairs, one
@@ -188,6 +190,7 @@ def _process_mixed_clusters_batched(
     counting rules."""
     from ..ops.msa.align import align_clusters
 
+    require_device(device)
     if timings is None:
         timings = {}
     mag = math.log((1 - epsil) / epsil)

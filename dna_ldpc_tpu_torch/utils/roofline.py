@@ -25,8 +25,14 @@ and ~8):
 - K2, per cell of a pair's (lx + 1) x (ly + 1) box: forward 13 ``expf`` +
   5 ``logf``, backward 14 ``expf`` + 5 ``logf`` = 37 special-function
   operations and ~440 f32 operations.
-- ``mea_dp``, per cell of the plane: one add, two compares and the choice
-  code, ~4 operations; its f32 plane in is what binds it.
+- ``mea_dp``, per cell of a cluster's (wA + 1) x (wB + 1) box: one add,
+  two compares and the choice code, ~4 operations; the wA x wB box of its
+  f32 plane in is what binds it (the rest of the plane cannot reach the
+  output).
+- ``merge_dp`` (BuildPost + the same DP), per cell of the box: |A| |B|
+  adds, |B| roundings to bf16 and the DP's ~4; its bytes are the wA x wB
+  entries that the column maps address in each of the |A| x |B| blocks of
+  ``Pblock`` that the masks select, each read once.
 """
 
 from __future__ import annotations
@@ -73,9 +79,28 @@ def k2_bound_ms(lx, ly, Lmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
     return bound_ms(n_bytes, K2_F32_PER_CELL * cells, K2_MUFU_PER_CELL * cells, sm_clock_mhz)
 
 
-def mea_bound_ms(C: int, Cmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
-    """``mea_dp`` on C clusters: the f32 plane [Cmax, Cmax] and two widths
-    in, a code (one byte) and a position (int32) per path step out, 2 Cmax
-    steps."""
-    n_bytes = C * (4 * Cmax * Cmax + 8 + 2 * Cmax * 5)
-    return bound_ms(n_bytes, MEA_F32_PER_CELL * C * Cmax * Cmax, 0.0, sm_clock_mhz)
+def mea_bound_ms(wA, wB, Cmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
+    """``mea_dp`` on clusters whose operands are ``wA``, ``wB`` columns wide
+    (one entry per cluster). Bytes in: the wA x wB box of the f32 plane —
+    the walk starts at (wA, wB) and moves to smaller i and j only, so no
+    entry outside the box can reach the output — and the two widths; bytes
+    out: a code (one byte) and a position (int32) per diagonal, 2 Cmax of
+    them."""
+    box = sum(int(x) * int(y) for x, y in zip(wA, wB))
+    cells = sum((int(x) + 1) * (int(y) + 1) for x, y in zip(wA, wB))
+    return bound_ms(4 * box + len(wA) * (8 + 2 * Cmax * 5), MEA_F32_PER_CELL * cells, 0.0, sm_clock_mhz)
+
+
+def merge_bound_ms(nA, nB, wA, wB, Cmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
+    """``merge_dp`` on a batch of clusters whose operands hold ``nA``,
+    ``nB`` sequences and are ``wA``, ``wB`` columns wide (one entry per
+    cluster). Bytes in: of each of the |A| x |B| blocks of ``Pblock`` that
+    the masks select, the wA x wB entries (bf16) that the members' column
+    maps address; the first wA (wB) entries of each member's column map
+    (int32); a mask byte per member; the two widths. Bytes out: a code and
+    a position per diagonal, 2 Cmax of them."""
+    n_bytes = f32 = 0
+    for a, b, x, y in zip(map(int, nA), map(int, nB), map(int, wA), map(int, wB)):
+        n_bytes += 2 * a * b * x * y + 4 * (a * x + b * y) + a + b + 8 + 2 * Cmax * 5
+        f32 += (x + 1) * (y + 1) * (a * b + b + MEA_F32_PER_CELL)
+    return bound_ms(n_bytes, f32, 0.0, sm_clock_mhz)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Compare two checkouts' K1 (fused BP) and K2 (pair-HMM) kernels on one
-GPU in one call, at the shapes ``chip_smoke.py`` times, and print
-``nvcc -Xptxas -v`` for their sources. ``chip_smoke.py`` holds the kernels
-against their twins and reports the committed tree's times and bounds;
-this script only takes turns between versions.
+"""Compare two checkouts' kernels — K1 (fused BP), K2 (pair-HMM) and the
+device MSA's merge — on one GPU in one call, at the shapes
+``chip_smoke.py`` times, and print ``nvcc -Xptxas -v`` for their sources.
+``chip_smoke.py`` holds the kernels against their twins and reports the
+committed tree's times and bounds; this script only takes turns between
+versions.
 
     python3 kernel_times.py --against DIR   # DIR, here, here, DIR: one JSON line of ms per turn
-    python3 kernel_times.py --ptxas         # registers, shared memory, spills of K1 and K2
+    python3 kernel_times.py --ptxas         # registers, shared memory, spills of every kernel
     python3 kernel_times.py --generic       # K1's generic kernel on other codes, tiles staged and in place
 
 ``DIR`` is a second checkout (``git archive <commit> | tar -x -C tmp_parent``);
@@ -14,7 +15,12 @@ each turn is a process of its own that imports ``dna_ldpc_tpu_torch`` from
 its checkout. Shapes, generators and the timer come from ``chip_smoke.py``:
 K1 on 64 trial-like codewords (200 iterations), on a 1024-frame AWGN batch
 at 4.25 dB (50 iterations, early stop and fixed work) and on its first 32
-frames; K2 on 512 pairs at Lmax = 160 and on one launch of the trial's size.
+frames; K2 on 512 pairs at Lmax = 160 and on one launch of the trial's size;
+the merge (BuildPost + MEA DP + walk: ``mea_cuda.merge_walk`` where the
+checkout has it, else ``_build_post`` into device memory followed by
+``mea_walk``) on 512 clusters of 8 reads at the first and the last
+progressive wave and on 64 clusters of 32 reads at a refinement
+bipartition of 16 reads a side; ``mea_dp`` alone on the first wave's planes.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from chip_smoke import K2_TRIAL_PAIRS, _coverage_llrs, _cuda_ms, _noisy_pairs  # noqa: E402
+from chip_smoke import K2_TRIAL_PAIRS, _coverage_llrs, _cuda_ms, _merge_waves, _noisy_pairs  # noqa: E402
 
 
 def _card() -> str:
@@ -50,8 +56,52 @@ def _awgn_llrs(code, frames: int, ebno_db: float, dev):
     return (2.0 / sigma2) * ((1.0 - 2.0 * cw.float()) + math.sqrt(sigma2) * noise)
 
 
+def merge_times(dev) -> dict:
+    """Milliseconds per batched merge of the checkout on the path (module
+    docstring), of ``mea_dp`` alone and of a whole ``_merge_step`` (the two
+    projections, the merge, the gap insertion), with the number of device
+    kernels one ``_merge_step`` launches (``torch.profiler``)."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda
+
+    # BuildPost lives beside the merge kernels where the checkout has ``merge_walk``
+    build_post = getattr(mea_cuda, "_build_post", None) or device_msa._build_post
+
+    def composite(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L):
+        return mea_cuda.mea_walk(build_post(Pblock, cposA, cposB, mA, mB, Cmax, L), wA, wB, Cmax)
+
+    merge = getattr(mea_cuda, "merge_walk", composite)
+    out = {"merge_is": "merge_dp" if merge is not composite else "_build_post + mea_dp"}
+    for k, margs, step in _merge_waves(np.random.default_rng(8), dev, 8, 512, 160):
+        if k in (0, 6):
+            out[f"merge_512x8_wave{k + 1}"] = _cuda_ms(lambda: merge(*margs), 10)
+            out[f"merge_step_512x8_wave{k + 1}"] = _cuda_ms(lambda: device_msa._merge_step(*step), 10)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                device_msa._merge_step(*step)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if "memcpy" not in e.key.lower() and "memset" not in e.key.lower()]
+            out[f"merge_step_kernels_wave{k + 1}"] = sum(e.count for e in events)
+            # device time of the hand-written kernel alone, without its wrapper's host time
+            out[f"merge_step_dp_kernel_device_ms_wave{k + 1}"] = sum(
+                e.device_time_total for e in events if "_dp_kernel" in e.key) / 1e3
+            out[f"merge_step_device_ms_wave{k + 1}"] = sum(e.device_time_total for e in events) / 1e3
+        if k == 0:
+            Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L = margs
+            plane = build_post(Pblock, cposA, cposB, mA, mB, Cmax, L)
+            out["mea_dp_512_Cmax192"] = _cuda_ms(lambda: mea_cuda.mea_walk(plane, wA, wB, Cmax), 20)
+            del plane
+    del margs, step
+    # a refinement bipartition of aligned clusters of 32 reads, 16 a side: 256 loads per cell
+    for k, margs, _ in _merge_waves(np.random.default_rng(9), dev, 32, 64, 160, consistency_iters=0):
+        if k == 31:
+            out["merge_64x32_refine16x16"] = _cuda_ms(lambda: merge(*margs), 5)
+    return out
+
+
 def measure(repo: str) -> dict:
-    """Milliseconds per call of both kernels of the checkout ``repo``."""
+    """Milliseconds per call of the kernels of the checkout ``repo``."""
     sys.path.insert(0, repo)
     import numpy as np
     import torch
@@ -75,14 +125,15 @@ def measure(repo: str) -> dict:
         "k1_awgn32_50it_fixed": _cuda_ms(lambda: bp(code, awgn[:32], 50, False), 3),
         "k2_512pairs_L160": _cuda_ms(lambda: k2(*[a[:512] for a in big], 160), 10),
         f"k2_{K2_TRIAL_PAIRS}pairs_L160": _cuda_ms(lambda: k2(*big, 160), 3),
+        **merge_times(dev),
     }
 
 
 def ptxas() -> None:
-    """Registers, shared memory and spills of every kernel of K1 and K2."""
+    """Registers, shared memory and spills of every kernel of the port."""
     from dna_ldpc_tpu_torch import cuda_lib
 
-    for name in ("bp_blocked.cu", "pairhmm.cu"):
+    for name in ("bp_blocked.cu", "pairhmm.cu", "mea_dp.cu"):
         proc = subprocess.run(
             [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
              os.path.join(HERE, "dna_ldpc_tpu_torch", "csrc", name)], capture_output=True, text=True)
@@ -130,7 +181,7 @@ def generic() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", default=HERE, help="checkout to import dna_ldpc_tpu_torch from")
-    ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v for K1 and K2 and stop")
+    ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v for every kernel and stop")
     ap.add_argument("--generic", action="store_true", help="time K1's generic kernel, tiles staged and in place")
     ap.add_argument("--against", help="a second checkout: run it, this one twice, and it again")
     a = ap.parse_args()

@@ -111,7 +111,7 @@ def test_generic_matches_jax(cov_mean):
     tg = graph_from_reference(jg)
     assert tg.blocked is None
     _, llr = coverage_llrs(H, 24, cov_mean, 0.03, seed=5)
-    assert_same(j_decode_llrs(jg, llr, max_iter=40), t_bp.decode_llrs(tg, llr, max_iter=40))
+    assert_same(j_decode_llrs(jg, llr, max_iter=40), t_bp.decode_llrs(tg, llr, max_iter=40, device="cpu"))
 
 
 def test_generic_and_blocked_agree_on_easy_words(small):

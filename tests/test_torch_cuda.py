@@ -277,7 +277,7 @@ def test_consistency_and_align_clusters_on_device(dev, monkeypatch):
     torch.testing.assert_close(got, consistency_core(torch.from_numpy(x), inv, 5, 2), atol=1e-5, rtol=0)
 
     clusters = [_copies(rng, n) for n in (2, 3, 5, 4, 1)]
-    want = align_clusters(clusters, refine_iters=10)
+    want = align_clusters(clusters, refine_iters=10, device="cpu")
     assert align_clusters(clusters, refine_iters=10, device=dev) == want
     monkeypatch.setenv("DNA_LDPC_DEVICE_MSA", "0")
     assert align_clusters(clusters, refine_iters=10, device=dev) == want
@@ -286,7 +286,7 @@ def test_consistency_and_align_clusters_on_device(dev, monkeypatch):
 @pytest.mark.parametrize("Cmax,kind", [(24, "quantised"), (192, "random"), (192, "quantised"), (286, "random")])
 def test_mea_kernel_matches_twin(dev, Cmax, kind):
     """Random and few-valued (exact-tie) planes, widths 0 and Cmax included;
-    Cmax = 286 is the largest the device MSA makes (164 KB of codes)."""
+    Cmax = 286 is the largest the device MSA makes (nine columns a lane)."""
     rng = np.random.default_rng(Cmax)
     C = 48
     post = rng.random((C, Cmax, Cmax)).astype(np.float32)
@@ -304,9 +304,85 @@ def test_mea_kernel_matches_twin(dev, Cmax, kind):
     assert torch.equal(codes, codes_r) and torch.equal(pos, pos_r)
 
 
+def _merge_case(dev, nb, Cmax, C=6, seed=0):
+    """A batched merge on the card: random pair posteriors with most of
+    their mass on the diagonal, and two gapped profiles a cluster, drawn
+    directly as column maps. Cluster 0 matches the second half of every
+    read to the first letter of every other (its path runs down A before
+    it crosses B: more than Cmax columns at Cmax >= 192, an overflow),
+    cluster 1 has an empty read as its A, cluster 2 an empty B, and the
+    last cluster is a pad (all-false masks)."""
+    L = Cmax - device_msa.COLUMN_SLACK
+    rng = np.random.default_rng(seed + 100 * nb + Cmax)
+    gen = torch.Generator(device=dev).manual_seed(seed + nb + Cmax)
+    npair = nb * (nb - 1) // 2
+    P = torch.zeros((C, npair, L + 1, L + 1), device=dev)
+    P[:, :, :L, :L] = torch.rand((C, npair, L, L), generator=gen, device=dev) * (
+        torch.rand((C, npair, L, L), generator=gen, device=dev) < 0.3)
+    idx = torch.arange(L, device=dev)
+    P[:, :, idx, idx] += 0.5
+    Pblock = device_msa.build_pblock(P, nb)
+    del P
+    blocks = Pblock.view(C, nb, L + 1, nb, L + 1)
+    blocks[0] = 0
+    blocks[0, :, L // 2 : L, :, 0] = 0.9
+    mA = np.zeros((C, nb), bool)
+    mB = np.zeros((C, nb), bool)
+    cpos = np.full((C, nb, Cmax + 1), L, np.int32)
+    for c in range(C - 1):
+        nA = int(rng.integers(1, nb)) if nb > 2 else 1
+        order = rng.permutation(nb)
+        mA[c, order[:nA]] = True
+        mB[c, order[nA:]] = True
+        if nb > 2 and c == 3:
+            mB[c, order[-1]] = False  # a sequence in neither operand
+        for side in (order[:nA], order[nA:]):
+            width = int(rng.integers(max(1, L - 12), L + 1))
+            for s in side:
+                cols = np.sort(rng.choice(width, width - int(rng.integers(0, min(6, width))), replace=False))
+                cpos[c, s, cols] = np.arange(len(cols))
+    cpos[1, mA[1]] = L
+    cpos[2, mB[2]] = L
+    cpos_t = torch.from_numpy(cpos).to(dev)
+    tA, tB = torch.from_numpy(mA).to(dev), torch.from_numpy(mB).to(dev)
+    cposA, wA = device_msa._project(cpos_t, tA, Cmax, L)
+    cposB, wB = device_msa._project(cpos_t, tB, Cmax, L)
+    return Pblock, cposA, cposB, tA, tB, wA, wB, Cmax, L
+
+
+@pytest.mark.parametrize("Cmax", [64, 192, 286])
+@pytest.mark.parametrize("nb", [2, 8, 32])
+def test_merge_kernel_matches_twin(dev, nb, Cmax):
+    """``merge_dp`` (BuildPost + DP + walk in one kernel) against
+    BuildPost into device memory followed by the full-plane twin: codes
+    and positions equal exactly, zero widths, a pad cluster and an
+    overflowing cluster included."""
+    args = _merge_case(dev, nb, Cmax)
+    wA, wB = args[5], args[6]
+    assert int(wA[1]) == 0 and int(wB[2]) == 0 and int(wA[-1]) == int(wB[-1]) == 0
+    before = mea_cuda.merge_launches, mea_cuda.launches
+    codes, pos = mea_cuda.merge_walk(*args)
+    codes_r, pos_r = mea_cuda.merge_walk_ref(*args)
+    torch.cuda.synchronize()
+    assert (mea_cuda.merge_launches, mea_cuda.launches) == (before[0] + 1, before[1])
+    assert torch.equal(codes, codes_r) and torch.equal(pos, pos_r)
+    if Cmax >= 192:
+        assert int((codes[0] != 0).sum()) > Cmax  # the overflowing cluster
+    assert not codes[-1].any() and (codes[3] == 1).sum() > Cmax // 8
+
+
+def test_merge_kernel_refuses_what_it_cannot_take(dev):
+    args = list(_merge_case(dev, 2, 64))
+    with pytest.raises(ValueError, match="several devices"):
+        mea_cuda.merge_walk(args[0].cpu(), *args[1:])
+    wide = torch.zeros((1, 300, 300), device=dev)
+    with pytest.raises(ValueError, match="Cmax=300"):
+        mea_cuda.mea_walk(wide, torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev), 300)
+
+
 def test_run_msa_batch_on_device(dev):
     """One bucket-8 batch of the device MSA on the card gives the CPU's rows
-    and overflow flags, through the MEA-DP kernel."""
+    and overflow flags, through the merge kernel."""
     rng = np.random.default_rng(9)
     nb, Lmax = 8, 160
     clusters = [_copies(rng, n) for n in (3, 5, 8, 4, 6, 7, 8, 5)]
@@ -331,8 +407,8 @@ def test_run_msa_batch_on_device(dev):
     P = device_msa.assemble_transform(
         posts, torch.from_numpy(flat), torch.from_numpy(mask), torch.from_numpy(inv_n), nb, 2, len(clusters), Lmax
     )
-    before = mea_cuda.launches
+    before = mea_cuda.merge_launches
     got, ovf = device_msa.run_msa_batch(P.to(dev), clusters, joins, nb, Lmax, 100, 0)
-    assert mea_cuda.launches > before
+    assert mea_cuda.merge_launches > before
     want, want_ovf = device_msa.run_msa_batch(P, clusters, joins, nb, Lmax, 100, 0)
     assert got == want and np.array_equal(ovf, want_ovf) and not ovf.any()

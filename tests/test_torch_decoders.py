@@ -184,8 +184,8 @@ def test_generic_bp_clip_and_fixed_work_match_jax(code):
         for early_stop in (True, False):
             assert_same(j_bp.bp_decode(jg, jnp.asarray(llr), 25, clip=clip, early_stop=early_stop),
                         t_bp.bp_decode(tg, torch.from_numpy(llr), 25, clip=clip, early_stop=early_stop))
-    early = t_bp.decode_llrs(tg, llr, 25)
-    fixed = t_bp.decode_llrs(tg, llr, 25, early_stop=False)
+    early = t_bp.decode_llrs(tg, llr, 25, device="cpu")
+    fixed = t_bp.decode_llrs(tg, llr, 25, device="cpu", early_stop=False)
     for name in ("bits", "success", "iterations", "unsat"):
         assert torch.equal(getattr(early, name), getattr(fixed, name)), name
 
@@ -207,7 +207,7 @@ def test_product_code_matches_jax():
     llr = (1.5 * np.where(cw == 0, 1.0, -1.0) + rng.normal(0, 1.0, cw.shape)).astype(np.float32)
     jb, jok = j_prod.product_decode(g1, g2, llr, outer_iters=2, inner_iters=2)
     tb, tok = t_prod.product_decode(graph_from_reference(g1), graph_from_reference(g2), llr, outer_iters=2,
-                                    inner_iters=2)
+                                    inner_iters=2, device="cpu")
     np.testing.assert_array_equal(tb, jb)
     np.testing.assert_array_equal(tok, jok)
 

@@ -112,7 +112,7 @@ def test_build_post_matches_jax():
     tA, tB = torch.from_numpy(mA), torch.from_numpy(mB)
     cposA, _ = t_dm._project(cpos, tA, Cmax, L)
     cposB, _ = t_dm._project(cpos, tB, Cmax, L)
-    got = t_dm._build_post(t_dm.build_pblock(torch.from_numpy(P), 4), cposA, cposB, tA, tB, Cmax, L)
+    got = mea_cuda._build_post(t_dm.build_pblock(torch.from_numpy(P), 4), cposA, cposB, tA, tB, Cmax, L)
     want = j_dm._build_post(
         j_dm.build_pblock(jnp.asarray(P), 4), jnp.asarray(cposA.numpy()), jnp.asarray(cposB.numpy()),
         jnp.asarray(mA), jnp.asarray(mB), Cmax, L,
@@ -193,7 +193,7 @@ def test_align_clusters_device_matches_jax(monkeypatch):
     want = j_align_clusters_device(clusters, 100, 2, 0, 64, None, {})
     timings = {}
     before = mea_cuda.launches
-    got = t_align.align_clusters(clusters, timings=timings)
+    got = t_align.align_clusters(clusters, device="cpu", timings=timings)
     assert mea_cuda.launches == before
     assert got == want
     assert got == [t_align.align(cl) for cl in clusters]
@@ -214,7 +214,7 @@ def test_overflow_falls_back_to_host(monkeypatch):
     monkeypatch.setattr(t_align, "msa_clusters", 0)
     monkeypatch.setattr(t_align, "fallback_clusters", 0)
     timings = {}
-    out = t_align.align_clusters(clusters, refine_iters=5, timings=timings)
+    out = t_align.align_clusters(clusters, refine_iters=5, device="cpu", timings=timings)
     assert (t_align.msa_clusters, t_align.fallback_clusters) == (3, 2)
     assert "progressive_refine" in timings and "msa_device" in timings
     assert len(out[0][0][1]) == 180
@@ -234,7 +234,7 @@ def test_long_reads_take_the_host_aligner_flow():
     assert max(len(s) for cl in clusters for s in cl) > 224
     timings = {}
     before = t_align.fallback_clusters
-    out = t_align.align_clusters(clusters, refine_iters=5, timings=timings)
+    out = t_align.align_clusters(clusters, refine_iters=5, device="cpu", timings=timings)
     assert set(timings) == {"pairhmm", "consistency", "progressive_refine"}
     assert t_align.fallback_clusters == before
     assert out == [t_align.align(cl, refine_iters=5) for cl in clusters]

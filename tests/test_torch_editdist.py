@@ -57,10 +57,10 @@ def test_edge_cases():
     pa, pb = _all_pairs(len(seqs))
     want = j_pairs(mat, lens, pa, pb)
     np.testing.assert_array_equal(edit_distance_pairs(mat, lens, pa, pb), want)
-    np.testing.assert_array_equal(edit_distance_pairs_device(mat, lens, pa, pb), want)
+    np.testing.assert_array_equal(edit_distance_pairs_device(mat, lens, pa, pb, "cpu"), want)
     assert want[0] == 1 and want[list(zip(pa, pb)).index((2, 3))] == 0
     empty = np.zeros(0, np.int64)
-    assert edit_distance_pairs_device(mat, lens, empty, empty).shape == (0,)
+    assert edit_distance_pairs_device(mat, lens, empty, empty, "cpu").shape == (0,)
 
 
 def test_device_rows_subset():
@@ -73,4 +73,4 @@ def test_device_rows_subset():
     pa = rng.integers(0, 16, 30)
     pb = rng.integers(0, 16, 30)
     want = j_pairs(mat, lens, pa, pb)
-    np.testing.assert_array_equal(edit_distance_pairs_device(mat, lens, pa, pb), want)
+    np.testing.assert_array_equal(edit_distance_pairs_device(mat, lens, pa, pb, "cpu"), want)

@@ -215,7 +215,7 @@ def test_k2_backward_mea_equals_forward_on_bf16_values(seed):
 def test_k2_backward_mea_on_real_posteriors_and_empty_boxes():
     xs = ["ACGTACGTTAGC" * 4, "ACGT", "", "TTTTTTTTTT", "ACGTNACGT"]
     ys = ["ACGTACTTAGC" * 4, "AGGT", "ACG", "TTTTTTT", "ACGTAACGT"]
-    post, ea, lx, ly, L = batch_post_ea(xs, ys)
+    post, ea, lx, ly, L = batch_post_ea(xs, ys, device="cpu")
     for p in range(len(xs)):
         box = _bf16(post[p, : lx[p], : ly[p]].numpy())
         assert _mea_score_backward(box) == ea[p].numpy(), p
@@ -263,5 +263,8 @@ def test_roofline_k2_counts_the_boxes_and_mea_the_plane():
     assert by == "bytes" and empty == pytest.approx(1e3 * 2 * (320 + 8 + 4 * 160 * 160 + 4) / 3.35e12, rel=1e-12)
     both, _ = roofline.k2_bound_ms([150, 0], [147, 5], 160)
     assert both == one
-    mea, by = roofline.mea_bound_ms(512, 192)
-    assert by == "bytes" and mea == pytest.approx(1e3 * 512 * (4 * 192 * 192 + 8 + 1920) / 3.35e12, rel=1e-12)
+    # mea_dp: of the plane only the wA x wB box can reach the path
+    mea, by = roofline.mea_bound_ms([136] * 512, [135] * 512, 192)
+    assert by == "bytes" and mea == pytest.approx(1e3 * 512 * (4 * 136 * 135 + 8 + 1920) / 3.35e12, rel=1e-12)
+    assert mea < roofline.mea_bound_ms([192] * 512, [192] * 512, 192)[0]
+    assert roofline.mea_bound_ms([0], [0], 192)[0] == pytest.approx(1e3 * (8 + 1920) / 3.35e12, rel=1e-12)

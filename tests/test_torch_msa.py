@@ -68,7 +68,7 @@ def test_align_clusters_matches_jax_fused_and_align(monkeypatch):
     )
     before = pairhmm_cuda.launches
     timings = {}
-    port = align_clusters(clusters, refine_iters=10, timings=timings)
+    port = align_clusters(clusters, refine_iters=10, device="cpu", timings=timings)
     assert pairhmm_cuda.launches == before  # CPU tensors: the twin ran
     assert port == fused
     assert port == [j_align(cl, refine_iters=10) for cl in clusters]
@@ -85,15 +85,15 @@ def test_align_clusters_small_budget_and_no_consistency(monkeypatch):
     single = [j_align(cl, refine_iters=5) for cl in clusters]
     with monkeypatch.context() as m:
         m.setattr(align_mod, "BUDGET_BYTES", 1)
-        assert align_clusters(clusters, refine_iters=5) == single
+        assert align_clusters(clusters, refine_iters=5, device="cpu") == single
     raw = _align_clusters_fused(
         clusters, refine_iters=5, consistency_iters=0, seed=0, pair_chunk=128, n_workers=2
     )
-    assert align_clusters(clusters, refine_iters=5, consistency_iters=0) == raw
+    assert align_clusters(clusters, refine_iters=5, consistency_iters=0, device="cpu") == raw
 
 
 def test_align_trial_length_cluster(monkeypatch):
     """136-nt reads with deletions, as the trial's mixed-length clusters."""
     monkeypatch.setenv("DNA_LDPC_PAIRHMM", "pallas")
     clusters = _clusters(5, (3, 2), 136)
-    assert align_clusters(clusters, refine_iters=10) == [j_align(cl, refine_iters=10) for cl in clusters]
+    assert align_clusters(clusters, refine_iters=10, device="cpu") == [j_align(cl, refine_iters=10) for cl in clusters]

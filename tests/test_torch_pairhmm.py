@@ -44,7 +44,7 @@ def _bf16(a):
 
 def _check(xs, ys, Lmax=None):
     post_j, ea_j, lx_j, ly_j, L_j = batch_post_ea_pallas(xs, ys, Lmax, interpret=True)
-    post, ea, lx, ly, L = batch_post_ea(xs, ys, Lmax)
+    post, ea, lx, ly, L = batch_post_ea(xs, ys, Lmax, device="cpu")
     assert L == L_j
     np.testing.assert_array_equal(lx, lx_j[: len(xs)])
     np.testing.assert_array_equal(ly, ly_j[: len(xs)])

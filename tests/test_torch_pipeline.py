@@ -66,7 +66,7 @@ def test_decode_trial_matches_jax(trial, tmp_path):
     jp, tp = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
     want = j_decode.decode_trial(reads, quals, cws, j_decode.TrialConfig(), checkpoint_path=jp)
     before = bp_cuda.launches
-    got = t_decode.decode_trial(reads, quals, cws, t_decode.TrialConfig(), checkpoint_path=tp)
+    got = t_decode.decode_trial(reads, quals, cws, t_decode.TrialConfig(device="cpu"), checkpoint_path=tp)
     assert bp_cuda.launches == before  # device "cpu": the plain twins ran
     # the LLR tables the checkpoints carry are bit-equal
     lj, lt = JCheckpoint.load(jp).llr_table, TrialCheckpoint.load(tp).llr_table
@@ -84,7 +84,7 @@ def test_decode_trial_matches_jax(trial, tmp_path):
     ):
         assert key in got.phase_times
     # a second run resumes from the checkpoint: ingest and first decode skipped
-    again = t_decode.decode_trial(reads, quals, cws, t_decode.TrialConfig(), checkpoint_path=tp)
+    again = t_decode.decode_trial(reads, quals, cws, t_decode.TrialConfig(device="cpu"), checkpoint_path=tp)
     assert again.phase_times["llr"] == 0.0 and again.phase_times["first_decode"] == 0.0
     np.testing.assert_array_equal(again.decoded_bits, got.decoded_bits)
 
@@ -101,7 +101,7 @@ def test_anneal_decode_matches_jax(strict):
     )
     got = t_decode.anneal_decode(
         graph_from_reference(jg), soft, cws,
-        t_decode.TrialConfig(strict_reference_failure_tracking=strict),
+        t_decode.TrialConfig(strict_reference_failure_tracking=strict, device="cpu"),
     )
     assert got[1:] == want[1:]
     assert got[1] == [2] and got[3] >= 1
@@ -115,11 +115,12 @@ def test_anneal_resume_equivalence():
     soft = _failing_soft()
     cws = np.zeros((2, 128), np.uint8)
     states = []
+    cfg = t_decode.TrialConfig(device="cpu")
     full = t_decode.anneal_decode(
-        g, soft, cws, save_cb=lambda d, ff, fc, it: states.append((np.array(d), list(ff), list(fc), it))
+        g, soft, cws, cfg, save_cb=lambda d, ff, fc, it: states.append((np.array(d), list(ff), list(fc), it))
     )
     assert len(states) == full[3] + 1
     for k in (0, len(states) // 2):
-        resumed = t_decode.anneal_decode(g, soft, cws, resume=states[k])
+        resumed = t_decode.anneal_decode(g, soft, cws, cfg, resume=states[k])
         assert resumed[1:] == full[1:]
         np.testing.assert_array_equal(resumed[0], full[0])

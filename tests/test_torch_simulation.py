@@ -101,7 +101,7 @@ def test_harness_accounting_matches_jax(code, monkeypatch, decoder, channel, poi
     patch_channels(monkeypatch)
     kw = dict(decoder=decoder, channel=channel, max_iter=max_iter, batch=32, target_frame_errors=40, max_frames=96,
               save_error_cases=5, track_position_ber=True)
-    jcfg, tcfg = j_sim.SimConfig(**kw), t_sim.SimConfig(**kw)
+    jcfg, tcfg = j_sim.SimConfig(**kw), t_sim.SimConfig(**kw, device="cpu")
     cws = random_codewords(H.to_dense(), 40, np.random.default_rng(1))
     rate = (H.n_cols - H.n_rows) / H.n_cols
     jr = [j_sim.simulate_point(H, jg, cws, p, jcfg, rate) for p in points]
@@ -131,12 +131,12 @@ def test_run_simulation_matches_jax(code, monkeypatch):
     monkeypatch.setattr(j_sim, "LdpcGraph", Unblocked)
     kw = dict(decoder="bp", channel="awgn", max_iter=5, batch=32, target_frame_errors=20, max_frames=64)
     jr = j_sim.run_simulation(H, [1.0, 2.5], j_sim.SimConfig(**kw), n_codewords=16)
-    tr = t_sim.run_simulation(H, [1.0, 2.5], t_sim.SimConfig(**kw), n_codewords=16, graph=tg)
+    tr = t_sim.run_simulation(H, [1.0, 2.5], t_sim.SimConfig(**kw, device="cpu"), n_codewords=16, graph=tg)
     assert [(r.frames, r.frame_errors, r.bit_errors, r.mean_iters) for r in jr] == [
         (r.frames, r.frame_errors, r.bit_errors, r.mean_iters) for r in tr]
     # puncture / shorten on the port's own channel (the patch bypasses it)
     monkeypatch.undo()
-    cfg = t_sim.SimConfig(puncture_positions=(0, 5), shorten_positions=(9,), batch=4)
+    cfg = t_sim.SimConfig(puncture_positions=(0, 5), shorten_positions=(9,), batch=4, device="cpu")
     cws = torch.zeros((4, H.n_cols), dtype=torch.uint8)
     rx = t_sim._apply_channel(cfg, cws, t_sim.batch_generator(7, 0, "cpu"), 3.0, 0.5)
     assert (rx[:, [0, 5]] == 0).all() and (rx[:, 9] == t_ch.SHORTEN_LLR).all()
@@ -150,7 +150,7 @@ def test_error_cases_save_load_replay(code, tmp_path):
     rate = (H.n_cols - H.n_rows) / H.n_cols
     for decoder, channel, param in (("bp", "awgn", 1.5), ("gallager_b", "bsc", 0.04), ("bec", "bec", 0.4)):
         cfg = t_sim.SimConfig(decoder=decoder, channel=channel, max_iter=20, batch=24, target_frame_errors=8,
-                              max_frames=72, save_error_cases=3)
+                              max_frames=72, save_error_cases=3, device="cpu")
         r = t_sim.simulate_point(H, tg, cws, param, cfg, rate)
         assert len(r.error_cases) == 3
         path = str(tmp_path / f"{decoder}.json")
@@ -182,13 +182,13 @@ def test_fer_falls_with_snr_and_bec_has_no_undetected_errors():
     """The JAX package's own simulation checks, on the port's draws."""
     H = build_rs_ldpc(4, 8, 4)
     cfg = t_sim.SimConfig(decoder="bp", channel="awgn", max_iter=30, batch=64, target_frame_errors=20,
-                          max_frames=512)
+                          max_frames=512, device="cpu")
     lo, hi = t_sim.run_simulation(H, [2.0, 7.0], cfg)
     assert lo.frames > 0 and hi.fer < lo.fer
     report = t_sim.format_report(H, cfg, [lo, hi])
     assert "rate" in report and "FER" in report
     cfg = t_sim.SimConfig(decoder="bec", channel="bec", max_iter=50, batch=64, target_frame_errors=10,
-                          max_frames=256)
+                          max_frames=256, device="cpu")
     (r,) = t_sim.run_simulation(H, [0.05], cfg)
     assert r.fer < 0.5 and r.undetected_errors == 0
     with pytest.raises(ValueError, match="position"):
@@ -200,7 +200,7 @@ def test_sim_config_needs_the_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_sim.SimConfig(device="cuda")
     with pytest.raises(ValueError, match="unknown decoder"):
-        t_sim._decode(t_sim.SimConfig(decoder="nope"), None, None)
+        t_sim._decode(t_sim.SimConfig(decoder="nope", device="cpu"), None, None)
 
 
 @pytest.mark.parametrize("cov_mean", [5.0, 1.5])
