@@ -58,9 +58,47 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    byte-equal), ``make-gen`` and ``encode`` of four messages, whose
    codewords must satisfy the pchk. It prints each decoder's ms per
    iteration at a batch of 32 and at its full batch, and K1's codewords
-   per second with and without early stop.
+   per second with and without early stop;
+10. the per-cluster route, ``compute_trial_llrs(..., aligner=msa_aligner)``
+    (what ``decode_trial(..., aligner=msa_aligner)`` runs), on the reads of
+    the first quarter of phase 5's strands (1,086 MSA clusters; the whole
+    trial's 4,285 take too long for this script, ``PERF.md`` §5): one
+    ``align()``
+    per mixed cluster, K2 launched once per cluster on the card, the host
+    C++ aligner after it. The LLR entries that differ from phase 6's rows
+    are printed (the consistency sums run on the CPU here, in a ``bmm`` on
+    the card there), and phase 6's table with these rows spliced in must
+    decode to phase 6's ``fail_first``, ``fail_final`` and
+    ``n_anneal_iters``; the seconds per cluster of each stage (the
+    pre-filter, the aligner and, inside it, ``align()``'s pair-HMM, EA,
+    consistency and host aligner, counting) are printed;
+11. (a) the general-table pair-HMM (plain torch) with the default tables on
+    phase 3's 512 pairs, within atol = rtol = 1e-4 of K2, its time per
+    1000 pairs beside K2's; (b) diversified ensembles of 4 replicates on
+    16 mixed clusters of phase 5 (replicate 0 through K2, 1-3 through the
+    general path), each replicate equal row for row to the CPU's, with
+    their CC values and qscores against replicate 0;
+12. index-free clustering: ``kmer_cluster(k=5, threshold=0.75)`` of 72,000
+    reads of 18,432 random 152-nt oligos on the card (purity at least
+    0.99 against the source oligos), its first 4,096 reads equal to the
+    CPU's assignment, and ``super_align`` of the reads of 64 oligos (rows
+    of one width that de-gap to their inputs, equal to the CPU's);
+13. double coverage, 140,000 reads of phase 5's pool (seed 5):
+    ``fail_final == []``, with the clusters handed to the host aligner
+    (``fallback_clusters``);
+14. the reference bench's annealing stress point (65,500 reads of the pool,
+    ``ChannelModel()``, seed 123): every codeword decodes at the first pass
+    there. Then 65,480 reads, where six codewords fail and annealing leaves
+    two: ``fail_first``, ``fail_final`` and ``n_anneal_iters`` must be those
+    the JAX package's decode gives on the same reads on the CPU
+    (``STRESS_REFERENCE``). Then the lowered count ``STRESS_READS``:
+    ``n_anneal_iters > 0``, ``fail_final == []``, and the
+    ``DNA_LDPC_DEVICE_MSA=0`` run's outcome. The pool's failures set in
+    abruptly and not monotonically in the read count, so the counts are
+    fixed, not searched for.
 
-Phases 2, 3, 7 and 9c print each kernel's time beside its bound at the
+Phases 10-12 print the K2 launches they made. Phases 2, 3, 7 and 9c
+print each kernel's time beside its bound at the
 timed shape — the least time the card could take for that work
 (``dna_ldpc_tpu_torch/utils/roofline.py``: the bytes that must move at
 3.35 TB/s against the f32 operations at 67 TFLOP/s and the
@@ -81,6 +119,7 @@ result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -99,6 +138,14 @@ BP_BATCH, BP_MAX_FRAMES = 1024, 32768
 ZOO_BATCH, ZOO_MAX_FRAMES = 512, 2048
 SMALL_BATCH = 32  # per-iteration times here and at full batch: launch- or memory-bound
 K2_TRIAL_PAIRS = 6000  # pairs in one K2 launch of the 72,000-read trial (47,327 pairs in 7 launches)
+ENSEMBLE_CLUSTERS = 16  # phase 11b
+PER_CLUSTER_STRANDS = 18432 // 4  # phase 10: the first quarter of the strands (1,086 MSA clusters)
+# phase 14: the bench's count (bench.py:141-153); a count whose outcome the JAX package's decode
+# gives on the CPU on the same reads (fail_first, fail_final, n_anneal_iters:
+# tests/test_torch_stress_point.py); a count at which a codeword fails and annealing recovers it
+STRESS_BENCH_READS = 65500
+STRESS_REFERENCE = (65480, [77, 90, 106, 129, 149, 260], [90, 149], 37)
+STRESS_READS = 65340
 ZOO_POINTS = [("quantized_min_sum", "awgn", 4.75), ("gallager_b", "bsc", 0.005), ("faid", "bsc", 0.003),
               ("bec", "bec", 0.055)]
 
@@ -138,9 +185,10 @@ def _noisy_pairs(rng, n: int):
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
-def _merge_waves(rng, dev, nb: int, C: int, Lmax: int, consistency_iters: int = 2):
+def _merge_waves(rng, dev, nb: int, C: int, Lmax: int, consistency_iters: int = 2, posteriors=None):
     """One device-MSA batch and its merges: C clusters of nb reads of one
-    strand each, pair posteriors from K2, UPGMA join orders. Yields
+    strand each, pair posteriors from K2 (``posteriors``, by default
+    ``pairhmm.k2_posteriors``), UPGMA join orders. Yields
     (k, margs, step) for a batched merge: the progressive waves
     k = 0 .. nb - 2, then, as k = nb - 1, a refinement bipartition of the
     aligned batch (even against odd reads). ``margs`` are the arguments of
@@ -150,13 +198,15 @@ def _merge_waves(rng, dev, nb: int, C: int, Lmax: int, consistency_iters: int = 
     import numpy as np
     import torch
 
-    from dna_ldpc_tpu_torch.ops.msa import align as msa_align
     from dna_ldpc_tpu_torch.ops.msa import device_msa
 
+    msa_align = importlib.import_module("dna_ldpc_tpu_torch.ops.msa.align")
+    if posteriors is None:
+        from dna_ldpc_tpu_torch.ops.msa.pairhmm import k2_posteriors as posteriors
     clusters = [_strand_reads(rng, nb) for _ in range(C)]
     prs = msa_align.cluster_pairs(nb)
     npair = len(prs)
-    posts, ea = msa_align._pair_posteriors(
+    posts, ea = posteriors(
         [cl[i] for cl in clusters for i, _ in prs], [cl[j] for cl in clusters for _, j in prs], Lmax, dev
     )
     P = device_msa.assemble_transform(
@@ -392,6 +442,185 @@ def _simulator_phase(dev, clock_mhz: float) -> int:
     return k1_launches
 
 
+def _per_cluster_phase(dev, reads, quals, cws, llr_host, res0) -> list[list[str]]:
+    """Phase 10: the per-cluster route (``aligner=msa_aligner``) over the
+    reads of the first PER_CLUSTER_STRANDS strands of phase 5's trial; its
+    LLR rows spliced into phase 6's table must decode to phase 6's
+    outcome. Returns the clusters it aligned (pre-filter survivors)."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import msa_aligner, pairhmm_cuda
+    from dna_ldpc_tpu_torch.pipeline import decode as trial_decode
+    from dna_ldpc_tpu_torch.pipeline.llr import FilteredReads, compute_trial_llrs, rs_filter_reads
+
+    filtered = rs_filter_reads(reads, quals)
+    keep = filtered.strands < PER_CLUSTER_STRANDS
+    block = FilteredReads([p for p, k in zip(filtered.payloads, keep) if k], filtered.quals[keep],
+                          filtered.strands[keep], int(keep.sum()), int(keep.sum()))
+    clusters = []
+    stages, align_stages = {}, {}
+
+    def aligner(seqs):
+        clusters.append(list(seqs))
+        return msa_aligner(seqs, timings=align_stages)
+
+    config = trial_decode.TrialConfig()
+    pairhmm_cuda.launches = pairhmm_cuda.pairs = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    table = compute_trial_llrs(block, config.epsil, aligner=aligner, timings=stages)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, pairs = pairhmm_cuda.launches, pairhmm_cuda.pairs
+    spliced = llr_host.copy()
+    spliced[:PER_CLUSTER_STRANDS] = table[:PER_CLUSTER_STRANDS]
+    n_diff = int((spliced != llr_host).sum())
+    _, fail_first, fail_final, n_iters = trial_decode.anneal_decode(
+        trial_decode.deployed_graph(), spliced.T.copy(), cws, config)
+    print(f"[10] per-cluster route (compute_trial_llrs(aligner=msa_aligner): one align() per mixed cluster, its "
+          f"pair-HMM on the card) on strands 0-{PER_CLUSTER_STRANDS - 1}: {len(block.payloads)} reads, "
+          f"{len(clusters)} MSA clusters, K2 launches {launches} for {pairs} pairs, {wall:.2f} s "
+          f"({1e3 * wall / max(len(clusters), 1):.1f} ms per cluster); LLR entries that differ from phase 6's rows: "
+          f"{n_diff} of {spliced[:PER_CLUSTER_STRANDS].size}; phase 6's table with these rows decodes to fail_first "
+          f"{fail_first}, fail_final {fail_final}, n_anneal_iters {n_iters}")
+    # where a cluster's time goes (host clock): cluster_llr's stages, and align()'s inside "msa"
+    # ("pairhmm": K2's launch, the download and bf16 rounding of its posteriors)
+    split = {**stages, **{f"msa.{k}": v for k, v in align_stages.items()}}
+    print("[10] stages, ms per MSA cluster: " + ", ".join(
+        f"{k} {1e3 * v / max(len(clusters), 1):.2f}" for k, v in split.items()))
+    if len(clusters) < 1000:
+        raise AssertionError(f"the block holds {len(clusters)} MSA clusters, fewer than 1000")
+    if (launches, pairs) != (len(clusters), sum(len(c) * (len(c) - 1) // 2 for c in clusters)):
+        raise AssertionError("the per-cluster route did not launch K2 once per MSA cluster")
+    if (fail_first, fail_final, n_iters) != (res0.fail_first, res0.fail_final, res0.n_anneal_iters):
+        raise AssertionError("the per-cluster rows do not decode to phase 6's outcome")
+    return clusters
+
+
+def _general_tables_phase(dev, k2_args, post_k, k2_ms: float, xs, ys) -> None:
+    """Phase 11a: the general-table pair-HMM (plain torch) with the default
+    tables on phase 3's 512 pairs (``k2_args``: their codes and lengths,
+    numpy), against K2's posteriors ``post_k``."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import pairhmm, pairhmm_cuda
+
+    X, Y, lx, ly = k2_args
+    Lmax = X.shape[1]
+    args = [torch.as_tensor(a, device=dev) for a in (X, Y, pairhmm._rev_pad(X, lx), pairhmm._rev_pad(Y, ly), lx, ly)]
+    params = pairhmm.nucleo_params()
+    pairhmm_cuda.launches = 0
+    post_g, _ = pairhmm._posteriors_device(*args, Lmax, params)
+    torch.cuda.synchronize()
+    err = (post_g - post_k).abs().max().item()
+    if not torch.allclose(post_g, post_k, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"general-table posteriors differ from K2's (max abs {err:.3e})")
+    rounded = post_g.to(torch.bfloat16).float().cpu().numpy()
+    for p, got in enumerate(pairhmm.batch_posteriors(xs, ys, Lmax, params=params, device=dev)):
+        if not np.array_equal(got, rounded[p, : lx[p], : ly[p]]):
+            raise AssertionError(f"batch_posteriors(params=) of pair {p} is not the general path's bf16 rounding")
+    ms = _cuda_ms(lambda: pairhmm._posteriors_device(*args, Lmax, params), 2)
+    if pairhmm_cuda.launches:
+        raise AssertionError("the general-table path launched K2")
+    print(f"[11a] general-table pair-HMM (plain torch, nucleo_params()) on phase 3's 512 pairs at Lmax={Lmax}: max abs "
+          f"diff vs K2 {err:.3e} (atol = rtol = 1e-4); {ms * 1e3 / 512:.1f} ms per 1000 pairs against K2's "
+          f"{k2_ms * 1e3 / 512:.3f}; batch_posteriors(params=) returns its bf16 rounding; K2 launches 0")
+
+
+def _ensemble_phase(dev, clusters) -> None:
+    """Phase 11b: diversified ensembles of 4 replicates on the card, each
+    replicate equal row for row to the CPU's, on ``clusters`` (phase 10's
+    pre-filter survivors, which phase 5 aligned too)."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
+    from dna_ldpc_tpu_torch.ops.msa.ensemble import ensemble_align, qscore, select_by_cc
+
+    if len(clusters) < ENSEMBLE_CLUSTERS:
+        raise AssertionError(f"phase 5 gave only {len(clusters)} clusters of >= 3 reads")
+    pairhmm_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    card = [ensemble_align(cl, replicates=4, mode="diversified", device=dev) for cl in clusters]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = pairhmm_cuda.launches
+    t0 = time.time()
+    host = [ensemble_align(cl, replicates=4, mode="diversified", device="cpu") for cl in clusters]
+    wall_cpu = time.time() - t0
+    for k, (a, b) in enumerate(zip(card, host)):
+        if a != b:
+            raise AssertionError(f"ensemble of cluster {k}: the card's replicates differ from the CPU's")
+    for k, (cl, ens) in enumerate(zip(clusters, card)):
+        cc = select_by_cc(ens)[1]
+        qs = [qscore(rep, ens[0]) for rep in ens[1:]]
+        print(f"[11b] cluster {k} ({len(cl)} reads): CC {np.round(cc, 4).tolist()}; Q/TC of replicates 1-3 vs 0 "
+              + ", ".join(f"{q['Q']:.4f}/{q['TC']:.4f}" for q in qs))
+    print(f"[11b] ensemble_align(mode='diversified', replicates=4) on {len(clusters)} clusters of phase 5's pre-filter "
+          f"survivors (from phase 10): every replicate equal row for row to device='cpu'; card {wall:.2f} s, CPU {wall_cpu:.2f} s; "
+          f"K2 launches {launches} (replicate 0; replicates 1-3 run the general path)")
+
+
+def _kmer_cluster_phase(dev, n_oligos: int = 18432, n_reads: int = 72000, n_super: int = 64) -> None:
+    """Phase 12: k-mer clustering of 72,000 reads of 18,432 random oligos on
+    the card; 4,096 reads and a super-alignment of the reads of 64 oligos
+    against the CPU."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.cluster import kmer_cluster, super_align
+    from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
+    from dna_ldpc_tpu_torch.pipeline.simulate import ChannelModel, simulate_reads
+
+    seed = 12
+    codes = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(seed).integers(0, 4, (n_oligos, 152))]
+    oligos = [row.tobytes().decode() for row in codes]
+    reads, _ = simulate_reads(oligos, n_reads, ChannelModel(), seed=seed)
+    source = np.random.default_rng(seed).integers(0, n_oligos, n_reads)  # simulate_reads' first draw
+    pairhmm_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cl = kmer_cluster(reads, k=5, threshold=0.75, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    # purity: reads whose cluster's majority oligo is their own; completeness:
+    # reads in the cluster that holds most of their oligo's reads
+    pair = np.stack([cl.assignment, source], 1)
+    uniq, counts = np.unique(pair, axis=0, return_counts=True)
+    by_cluster = np.zeros(cl.n_clusters, np.int64)
+    np.maximum.at(by_cluster, uniq[:, 0], counts)
+    by_oligo = np.zeros(n_oligos, np.int64)
+    np.maximum.at(by_oligo, uniq[:, 1], counts)
+    purity, completeness = by_cluster.sum() / n_reads, by_oligo.sum() / n_reads
+    print(f"[12] kmer_cluster(k=5, threshold=0.75) of {n_reads} reads of {n_oligos} random 152-nt oligos on the card: "
+          f"{cl.n_clusters} clusters ({len(np.unique(source))} oligos drawn), purity {purity:.5f}, completeness "
+          f"{completeness:.5f}, wall {wall:.2f} s")
+    if purity < 0.99:
+        raise AssertionError(f"k-mer clustering purity {purity:.5f} < 0.99")
+    few = reads[:4096]
+    a, b = kmer_cluster(few, device=dev), kmer_cluster(few, device="cpu")
+    if not (np.array_equal(a.assignment, b.assignment) and np.array_equal(a.centroids, b.centroids)):
+        raise AssertionError("kmer_cluster of 4096 reads: the card's assignment differs from the CPU's")
+    sub = [r for r, s in zip(reads, source) if s < n_super]
+    t0 = time.time()
+    rows = super_align(sub, device=dev)
+    torch.cuda.synchronize()
+    wall_sa = time.time() - t0
+    launches = pairhmm_cuda.launches
+    if sorted(i for i, _ in rows) != list(range(len(sub))) or len({len(r) for _, r in rows}) != 1:
+        raise AssertionError("super_align rows are not one width over every input")
+    if any(r.replace("-", "") != sub[i] for i, r in rows):
+        raise AssertionError("a super_align row does not de-gap to its input")
+    if rows != super_align(sub, device="cpu"):
+        raise AssertionError("super_align on the card differs from the CPU's")
+    print(f"[12] kmer_cluster of the first 4096 reads: card == CPU ({a.n_clusters} clusters); super_align of the "
+          f"{len(sub)} reads of {n_super} oligos: width {len(rows[0][1])}, rows de-gap to the inputs, equal to the CPU's; "
+          f"card {wall_sa:.2f} s, K2 launches {launches}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -405,7 +634,6 @@ def main() -> int:
     from dna_ldpc_tpu_torch.models.rs_ldpc import dna_storage_pchk
     from dna_ldpc_tpu_torch.ops import bp_cuda
     from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
-    from dna_ldpc_tpu_torch.ops.msa import align as msa_align
     from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, pairhmm_cuda
     from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
     from dna_ldpc_tpu_torch.pipeline import decode as trial_decode
@@ -416,6 +644,7 @@ def main() -> int:
     from dna_ldpc_tpu_torch.utils import roofline
     from dna_ldpc_tpu_torch.utils.io_formats import write_lines, write_vector
 
+    msa_align = importlib.import_module("dna_ldpc_tpu_torch.ops.msa.align")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -545,7 +774,8 @@ def main() -> int:
     cws = group_union_codewords(code, 272, rng)
     if dna_storage_pchk().mulvec(cws).any():
         raise AssertionError("synthetic codewords violate H")
-    reads, quals = simulate_reads(encode_oligos(cws), 72000, ChannelModel(), seed=7)
+    oligos = encode_oligos(cws)
+    reads, quals = simulate_reads(oligos, 72000, ChannelModel(), seed=7)
     # decode_trial's LLR table, captured from its call of compute_trial_llrs
     llr_tables = []
     compute_trial_llrs = trial_decode.compute_trial_llrs
@@ -556,10 +786,10 @@ def main() -> int:
 
     trial_decode.compute_trial_llrs = capture_llrs
 
-    def run_trial():
-        """decode_trial on the card with every launch count reset just
-        before and read just after; returns (result, LLR table, launches,
-        MSA clusters, host-aligner fallbacks, wall seconds)."""
+    def run_trial(reads=reads, quals=quals):
+        """decode_trial of ``cws`` on the card with every launch count reset
+        just before and read just after; returns (result, LLR table,
+        launches, MSA clusters, host-aligner fallbacks, wall seconds)."""
         bp_cuda.launches = 0
         pairhmm_cuda.launches = pairhmm_cuda.pairs = 0
         mea_cuda.launches = mea_cuda.merge_launches = 0
@@ -658,7 +888,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
         for i in range(len(cws)):
             write_vector(os.path.join(d, f"codeword_n18432_m1860_{i + 1}.txt"), cws[i])
-        write_lines(os.path.join(d, "final_DNA.txt"), encode_oligos(cws))
+        write_lines(os.path.join(d, "final_DNA.txt"), oligos)
         t0 = time.time()
         proc = subprocess.run(
             [sys.executable, "-m", "dna_ldpc_tpu_torch.cli", "simulate", "--rs", "72000", "--start", "0",
@@ -681,6 +911,52 @@ def main() -> int:
     # ---- 9. the code simulator on the card ----------------------------------
     k1_sim_launches = _simulator_phase(dev, clock_mhz)
 
+    # ---- 10. the per-cluster route on the first quarter of the strands -------
+    msa_clusters = _per_cluster_phase(dev, reads, quals, cws, llr_host, res0)
+
+    # ---- 11. the general-table pair-HMM and ensembles -------------------------
+    _general_tables_phase(dev, [a[:512] for a in (X, Y, lx, ly)], post_k, k2_ms, xs, ys)
+    _ensemble_phase(dev, [c for c in msa_clusters if len(c) >= 3][:ENSEMBLE_CLUSTERS])
+
+    # ---- 12. index-free clustering at trial scale -----------------------------
+    _kmer_cluster_phase(dev)
+
+    # ---- 13. double coverage; 14. the annealing stress point -----------------
+    dreads, dquals = simulate_reads(oligos, 140000, ChannelModel(), seed=5)
+    rd, _, launches_d, n_msa_d, n_fb_d, wd = run_trial(dreads, dquals)
+    print(f"[13] double coverage: 140000 reads (seed 5): fail_first {rd.fail_first}, fail_final {rd.fail_final}, "
+          f"n_anneal_iters {rd.n_anneal_iters}, MSA clusters {n_msa_d}, fallback_clusters {n_fb_d}, K2 pairs "
+          f"{pairhmm_cuda.pairs}, wall {wd:.2f} s, launches {launches_d}")
+    print("[13] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in rd.phase_times.items()))
+    if rd.fail_final or not np.array_equal(rd.decoded_bits, cws):
+        raise AssertionError(f"double-coverage trial not recovered: fail_final {rd.fail_final}")
+
+    n_ref, *want = STRESS_REFERENCE
+    for n_reads in (STRESS_BENCH_READS, n_ref, STRESS_READS):
+        sreads, squals = simulate_reads(oligos, n_reads, ChannelModel(), seed=123)
+        rs, _, _, _, _, ws = run_trial(sreads, squals)
+        got = [rs.fail_first, rs.fail_final, rs.n_anneal_iters]
+        print(f"[14] stress point: {n_reads} reads (seed 123): fail_first {got[0][:20]}, fail_final "
+              f"{got[1][:20]}, n_anneal_iters {got[2]}, wall {ws:.2f} s"
+              + (f"; the JAX package's on the CPU: {want}" if n_reads == n_ref else ""))
+        if n_reads == n_ref:
+            if got != want:
+                raise AssertionError(f"{n_reads} reads: outcome {got}, the JAX package's {want}")
+        elif rs.fail_final or not np.array_equal(rs.decoded_bits, cws):
+            raise AssertionError(f"{n_reads} reads not recovered: fail_final {rs.fail_final}")
+    if rs.n_anneal_iters == 0:
+        raise AssertionError(f"{STRESS_READS} reads did not make the trial anneal")
+    os.environ["DNA_LDPC_DEVICE_MSA"] = "0"
+    try:
+        rs0, _, _, _, _, ws0 = run_trial(sreads, squals)
+    finally:
+        del os.environ["DNA_LDPC_DEVICE_MSA"]
+    print(f"[14] stress point at {n_reads} reads, DNA_LDPC_DEVICE_MSA=0: fail_first {rs0.fail_first}, fail_final "
+          f"{rs0.fail_final}, n_anneal_iters {rs0.n_anneal_iters}, wall {ws0:.2f} s; annealing rounds "
+          f"{rs.phase_times['second_decode']:.4f} s on the card (second_decode)")
+    for name in ("fail_first", "fail_final", "n_anneal_iters"):
+        if getattr(rs0, name) != getattr(rs, name):
+            raise AssertionError(f"stress point: {name} differs between the device MSA and the host-aligner flow")
     kernels = [
         {"name": "bp_blocked", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/bp_blocked.cu",
          "replaces": "dna_ldpc_tpu/ops/bp_pallas.py:55", "launches": launches["bp_blocked"] + k1_sim_launches,

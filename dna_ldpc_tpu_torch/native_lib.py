@@ -64,6 +64,9 @@ def load() -> ctypes.CDLL:
             ]
             lib.edit_distance_batch.argtypes = [u8p, i64p, i32p, i32p, i32p, ctypes.c_int64, i32p]
             lib.mea_score.argtypes = [f32p, ctypes.c_int32, ctypes.c_int32, f32p]
+            lib.mea_align.argtypes = [
+                f32p, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p, ctypes.c_char_p, i32p, f32p,
+            ]
             lib.merge_overlap_batch.argtypes = [
                 u8p, u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, i64p, i64p,
             ]
@@ -74,11 +77,21 @@ def load() -> ctypes.CDLL:
                 u8p, ctypes.c_int32, ctypes.c_int32,   # masks
                 u8p, ctypes.c_int32, i32p,             # out
             ]
-            for fn in (lib.count_trial_llrs, lib.edit_distance_batch, lib.mea_score,
+            for fn in (lib.count_trial_llrs, lib.edit_distance_batch, lib.mea_score, lib.mea_align,
                        lib.merge_overlap_batch, lib.msa_progressive_refine):
                 fn.restype = None
             _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the native library builds and loads here. Informational: the
+    port's entry points call ``load()`` and raise when it fails."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def _ptr(arr: np.ndarray, ctype):
@@ -178,6 +191,21 @@ def mea_score_native(post: np.ndarray) -> float:
     lib.mea_score(_ptr(post, ctypes.c_float), ctypes.c_int32(LX), ctypes.c_int32(LY),
                   _ptr(score, ctypes.c_float))
     return float(score[0])
+
+
+def mea_align_native(post: np.ndarray) -> tuple[float, str]:
+    """MEA DP + traceback (CalcAlnFlat + TraceBackFlat) of one [LX, LY]
+    posterior: (score, path of 'B'/'X'/'Y' characters)."""
+    lib = load()
+    post = np.ascontiguousarray(post, np.float32)
+    LX, LY = post.shape
+    tb = ctypes.create_string_buffer((LX + 1) * (LY + 1))
+    path = ctypes.create_string_buffer(LX + LY + 1)
+    n = np.zeros(1, np.int32)
+    score = np.zeros(1, np.float32)
+    lib.mea_align(_ptr(post, ctypes.c_float), ctypes.c_int32(LX), ctypes.c_int32(LY), tb, path,
+                  _ptr(n, ctypes.c_int32), _ptr(score, ctypes.c_float))
+    return float(score[0]), path.raw[: int(n[0])].decode()
 
 
 def merge_overlap_batch_native(

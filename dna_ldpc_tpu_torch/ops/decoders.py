@@ -29,7 +29,7 @@ import torch
 
 from ..models.ldpc_graph import LdpcGraph
 from .bp import BpResult, _gather_checkmajor, _iterate, _posterior_update, _syndrome_unsat
-from .channels import ERASE_MARK
+from .channels import ERASE_MARK  # also decoders.ERASE_MARK, as in the JAX package
 
 
 def sign_min_update(v2c: torch.Tensor, check_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Batched Levenshtein edit distance via antidiagonal dynamic programming.
 
 Port of ``dna_ldpc_tpu/ops/editdist.py``: the numpy sweep
-(``edit_distance_pairs``, carried unchanged) and the device sweep
+(``edit_distance_pairs``, carried unchanged, and its scalar wrapper
+``edit_distance``) and the device sweep
 (``edit_distance_pairs_device``), which runs the same integer recurrence
 as plain torch ops on any device — every pair of a trial in one pass of
 2L antidiagonal steps. Distances are integers, so both are bit-identical
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils.device import DEFAULT_DEVICE, require_device
+from ..utils.dna import seqs_to_matrix
 
 
 def edit_distance_pairs(
@@ -136,3 +138,10 @@ def edit_distance_pairs_device(
         dist = torch.where(done_d == d, cost.gather(1, la[:, None])[:, 0], dist)
         prev2, prev1 = prev1, cost
     return dist.cpu().numpy().astype(np.int32)
+
+
+def edit_distance(s1: str, s2: str) -> int:
+    """Scalar convenience wrapper (test parity with def_func.edit_dist)."""
+    mat = seqs_to_matrix([s1, s2], fill=b"\x00")
+    lengths = np.array([len(s1), len(s2)])
+    return int(edit_distance_pairs(mat, lengths, np.array([0]), np.array([1]))[0])

@@ -16,23 +16,11 @@ full float32 (TF32 off), matching the JAX package's HIGHEST precision.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
+from ...utils.device import full_f32_matmul
 from .pairhmm import MIN_SPARSE_PROB
-
-
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """Run CUDA float32 matrix products without TF32 (restored after)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def consistency_core(pair_mats: torch.Tensor, inv_n: torch.Tensor, n: int, iters: int) -> torch.Tensor:
@@ -47,7 +35,7 @@ def consistency_core(pair_mats: torch.Tensor, inv_n: torch.Tensor, n: int, iters
     A[:, ii, jj] = pair_mats
     A[:, jj, ii] = pair_mats.transpose(-1, -2)
     scale = inv_n.to(pair_mats.dtype)[:, None, None, None, None]
-    with _full_f32_matmul():
+    with full_f32_matmul():
         for _ in range(iters):
             # rows (i, a), columns (z, b): S = A @ A sums over z and b
             Am = A.permute(0, 1, 3, 2, 4).reshape(C, n * L, n * L)

@@ -43,7 +43,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import align
+from . import pairhmm
+from .align import CONVERGE_AFTER, _refine_masks
 from .consistency import consistency_core
 from .mea_cuda import CB, CX, CY, merge_walk
 
@@ -209,7 +210,7 @@ def _msa_refine(Pblock, cpos, width, frozen, ovf, rA, rows_pc, Cmax: int, L: int
         ovf = ovf | (ovf_now & upd_ok & row_valid)
         act = row_valid & upd_ok
         unchanged = torch.where(act, torch.where(changed, 0, unchanged + 1), unchanged)
-        frozen = frozen | (unchanged >= align.CONVERGE_AFTER)
+        frozen = frozen | (unchanged >= CONVERGE_AFTER)
         it += 1
     return cpos, width, frozen, ovf
 
@@ -226,7 +227,7 @@ def assemble_transform(posts, ids, mask, inv_n, nb: int, iters: int, C_cap: int,
     out = torch.zeros((C_cap, npair, L + 1, L + 1), dtype=torch.bfloat16, device=posts.device)
     transform = bool(iters) and nb >= 3
     # consistency_core holds ~5 f32 block tensors [nb, nb, L, L] per cluster
-    ck = max(1, align.BUDGET_BYTES // (5 * nb * nb * L * L * 4)) if transform else C_cap
+    ck = max(1, pairhmm.BUDGET_BYTES // (5 * nb * nb * L * L * 4)) if transform else C_cap
     for lo in range(0, C_cap, ck):
         hi = min(C_cap, lo + ck)
         sel = posts[ids[lo * npair : hi * npair]]
@@ -312,7 +313,7 @@ def start_msa_batch(
 
     # refinement: per-cluster mask tables by true n (clusters with n < 3
     # skip refinement entirely -> all-false rows)
-    tables = {n: align._refine_masks(n, refine_iters, seed) for n in {len(s) for s in seqs_list}}
+    tables = {n: _refine_masks(n, refine_iters, seed) for n in {len(s) for s in seqs_list}}
     max_rows = max((t.shape[0] for t in tables.values()), default=0)
     if max_rows:
         rA = np.zeros((max_rows, C_cap, nb), bool)

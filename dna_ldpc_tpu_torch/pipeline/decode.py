@@ -40,7 +40,7 @@ from ..models.ldpc_graph import LdpcGraph
 from ..models.rs_ldpc import dna_storage_pchk
 from ..ops.bp import bp_decode
 from ..utils.device import DEFAULT_DEVICE, require_device
-from .llr import compute_trial_llrs, rs_filter_reads
+from .llr import Aligner, compute_trial_llrs, rs_filter_reads
 
 ERASURE_THRESHOLD = 140  # decoder.py:591
 
@@ -156,11 +156,16 @@ def decode_trial(
     quals: Sequence[str | int],
     codewords: np.ndarray,
     config: TrialConfig | None = None,
+    aligner: Aligner | None = None,
     graph: LdpcGraph | None = None,
     checkpoint_path: str | None = None,
 ) -> TrialResult:
     """Decode one trial. codewords: [272, 18432] oracle bits, used for
     error counting exactly as the reference does.
+
+    ``aligner``: None routes mixed-length clusters through the
+    cross-cluster batched MSA (the default); an aligner (for example
+    ``ops.msa.msa_aligner``) takes them one cluster at a time.
 
     ``checkpoint_path``: optional npz path; if it holds a checkpoint for
     the same epsilon, the ingest stage (RS + clustering + MSA + counting)
@@ -194,7 +199,7 @@ def decode_trial(
         t0 = time.time()
         llr_sub: dict = {}
         llr_table = compute_trial_llrs(
-            filtered, config.epsil, device=config.device, timings=llr_sub
+            filtered, config.epsil, aligner, device=config.device, timings=llr_sub
         )  # [18432, 272]
         phase["llr"] = time.time() - t0
         for k, v in llr_sub.items():

@@ -1,8 +1,8 @@
 """Soft-information (LLR) extraction over clustered sequencing reads.
 
 Port of ``dna_ldpc_tpu/pipeline/llr.py`` (``rs_filter_reads``,
-``compute_trial_llrs`` and the batched mixed-cluster path), which
-reproduces rule for rule the per-cluster LLR computation of the reference
+``cluster_llr``, ``compute_trial_llrs`` and the batched mixed-cluster
+path), which reproduces rule for rule the per-cluster LLR computation of the reference
 trial script (``ex_decoder/decoder.py:148-535``):
 
 - reads are RS-index-decoded, kept if cnumerr <= 2 (decoder.py:86-92) and
@@ -24,20 +24,33 @@ trial script (``ex_decoder/decoder.py:148-535``):
   decoder.py:305-311;
 - strands with no usable reads get all-zero LLRs (decoder.py:514-517).
 
-Countable clusters are tallied by the native C++ pass; mixed-length
-clusters run the edit-distance pre-filter (on the device when ``device``
-is CUDA, in native code otherwise) and the cross-cluster MSA
-(``ops.msa.align.align_clusters``) on ``device``.
+Countable clusters are tallied by the native C++ pass
+(``use_native=True``). The clusters it leaves take one of two routes:
+
+- batched (``aligner=None``, ``batch_msa=True``, the default): one
+  edit-distance pre-filter over every cluster's pairs (on the device when
+  ``device`` is CUDA, in native code otherwise) and the cross-cluster MSA
+  (``ops.msa.align.align_clusters``) on ``device``;
+- per cluster: ``cluster_llr`` with the caller's ``aligner`` (for example
+  ``ops.msa.msa_aligner``, one ``align()`` per cluster), its pre-filter in
+  numpy.
+
+Without the native pass (``use_native=False``) every cluster goes through
+``cluster_llr``, with ``ops.msa.msa_aligner`` on ``device`` unless an
+aligner is given. (The JAX package sends every cluster to its batched
+route in that case, which erases single-read clusters and aligns all-136
+ones; the port does not follow it there.)
 
 Output is the [18432, 272] LLR table (strand-major).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -45,8 +58,13 @@ import torch
 from .. import native_lib
 from ..models.codebook import N_STRANDS, PAYLOAD_BITS, PAYLOAD_NT, codebook_rank
 from ..models.rs_index import decode_index_bits
+from ..ops.editdist import edit_distance_pairs
 from ..utils import dna
 from ..utils.device import DEFAULT_DEVICE, require_device
+
+# aligner: list of sequences -> list of (input ordinal, aligned row) in MSA
+# output order (rows may be reordered, like MUSCLE output).
+Aligner = Callable[[Sequence[str]], list[tuple[int, str]]]
 
 EDIT_PREFILTER_THRESHOLD = 15  # decoder.py:182 "temp < 15"
 Q_LOW = 53                     # decoder.py:294 (Phred+33 '5' ~ Q20)
@@ -126,19 +144,118 @@ def _count_llr(rows: list[str], rq: list[int], mag: float) -> np.ndarray:
     return llr
 
 
+def _misaligned_llr(error_q: list[tuple[int, str]], mag: float) -> np.ndarray:
+    """LLRs of a cluster none of whose MSA rows has 136 columns: only bit
+    271, from the last character of the high-quality rows (gap/'2' counts
+    as a one vote; decoder.py:266-289)."""
+    llr = np.zeros(PAYLOAD_BITS, dtype=np.float64)
+    c0 = c1 = 0
+    for qq, ch in error_q:
+        if qq > Q_HIGH:
+            lsb = dna.dna_to_bits(dna.seq_to_bytes(ch))[1]
+            if lsb == 0:
+                c0 += 1
+            else:
+                c1 += 1
+    llr[PAYLOAD_BITS - 1] = (c0 - c1) * mag
+    return llr
+
+
+def _aligned_llr(rows_out, subq: list[int], mag: float) -> np.ndarray:
+    """LLRs of a cluster from its MSA rows: rows of 136 columns counted,
+    the rest kept for the bit-271 rule (decoder.py:209-289)."""
+    rows, rq, error_q = [], [], []
+    for ordinal, aseq in rows_out:
+        if len(aseq) != PAYLOAD_NT:
+            error_q.append((subq[ordinal], aseq[-1]))  # decoder.py:223-226
+        else:
+            rows.append(aseq)
+            rq.append(subq[ordinal])
+    if not rows:
+        return _misaligned_llr(error_q, mag)
+    return _count_llr(rows, rq, mag)
+
+
+def cluster_llr(
+    reads: list[str], quals: list[int], epsil: float, aligner: Aligner | None,
+    timings: dict | None = None,
+) -> np.ndarray | None:
+    """LLR vector for one cluster, or None when the strand is an erasure
+    (no reads survive the edit-distance pre-filter). ``timings``
+    accumulates the seconds of a mixed cluster's stages: "edit_prefilter",
+    "msa" (the aligner) and "counting"."""
+    mag = math.log((1 - epsil) / epsil)
+    if timings is None:
+        timings = {}
+
+    if len(reads) != 1:
+        if all(len(r) == PAYLOAD_NT for r in reads):
+            return _count_llr(reads, quals, mag)
+        # mixed lengths: all-pairs pre-filter (decoder.py:178-187)
+        t0 = time.time()
+        n = len(reads)
+        ii, kk = np.triu_indices(n, k=1)
+        mat = dna.seqs_to_matrix(reads, fill=b"\x00")
+        lens = np.array([len(r) for r in reads])
+        dists = edit_distance_pairs(mat, lens, ii, kk)
+        close = dists < EDIT_PREFILTER_THRESHOLD
+        keep = np.unique(np.concatenate([ii[close], kk[close]]))
+        t0 = _tick(timings, "edit_prefilter", t0)
+        if len(keep) == 0:
+            return None  # erasure (decoder.py:188-197)
+        if aligner is None:
+            raise ValueError("mixed-length cluster requires an aligner")
+        rows = aligner([reads[i] for i in keep])
+        t0 = _tick(timings, "msa", t0)
+        llr = _aligned_llr(rows, [quals[i] for i in keep], mag)
+        _tick(timings, "counting", t0)
+        return llr
+
+    # single-read cluster
+    r = reads[0]
+    if len(r) < PAYLOAD_NT:
+        llr = np.zeros(PAYLOAD_BITS, dtype=np.float64)
+        if quals[0] > Q_HIGH:
+            lsb = dna.dna_to_bits(dna.seq_to_bytes(r))[-1]
+            llr[PAYLOAD_BITS - 1] = mag if lsb == 0 else -mag
+        return llr
+    return _count_llr([r], [quals[0]], mag)
+
+
+def _tick(timings: dict, key: str, t0: float) -> float:
+    now = time.time()
+    timings[key] = timings.get(key, 0.0) + (now - t0)
+    return now
+
+
 def compute_trial_llrs(
     filtered: FilteredReads,
     epsil: float,
+    aligner: Aligner | None = None,
+    use_native: bool = True,
+    batch_msa: bool = True,
     device=DEFAULT_DEVICE,
     timings: dict | None = None,
 ) -> np.ndarray:
     """Full [18432, 272] LLR table for one trial (erasure strands zero).
-    Countable clusters (all-136 multi-read, single reads) are tallied in
-    one native pass; mixed-length clusters take the pre-filter + MSA path
-    on ``device``."""
+
+    With ``use_native`` (the native library must build), countable
+    clusters (all-136 multi-read, single reads) are tallied in one native
+    pass; the rest take the batched pre-filter + MSA route on ``device``
+    when ``aligner`` is None and ``batch_msa``, else go one by one through
+    ``cluster_llr`` with ``aligner``. Without ``use_native`` every cluster
+    goes through ``cluster_llr``, with ``ops.msa.msa_aligner`` on
+    ``device`` when ``aligner`` is None (the batched route counts neither
+    single reads nor all-136 clusters). ``timings`` accumulates seconds
+    per stage: "native_count", then the batched route's keys or
+    ``cluster_llr``'s."""
     require_device(device)
     if timings is None:
         timings = {}
+    if aligner is None and not use_native:
+        from ..ops.msa import msa_aligner
+
+        aligner = functools.partial(msa_aligner, device=device)
     out = np.zeros((N_STRANDS, PAYLOAD_BITS), dtype=np.float64)
     strands = filtered.strands
     if len(strands) == 0:
@@ -149,18 +266,27 @@ def compute_trial_llrs(
     ends = np.concatenate([boundaries, [len(strands)]]).astype(np.int64)
     strand_of_cluster = strands[starts].astype(np.int32)
 
-    buf, offsets, lengths = native_lib.pack_seqs(filtered.payloads)
-    mag = math.log((1 - epsil) / epsil)
-    needs_msa = native_lib.count_trial_llrs_native(
-        buf, offsets, lengths, np.ascontiguousarray(filtered.quals, np.int64),
-        starts, ends, strand_of_cluster, mag, out,
-    )
+    pending_mask = np.ones(len(starts), dtype=np.int32)
+    if use_native:
+        buf, offsets, lengths = native_lib.pack_seqs(filtered.payloads)
+        mag = math.log((1 - epsil) / epsil)
+        pending_mask = native_lib.count_trial_llrs_native(
+            buf, offsets, lengths, np.ascontiguousarray(filtered.quals, np.int64),
+            starts, ends, strand_of_cluster, mag, out,
+        )
     timings["native_count"] = timings.get("native_count", 0.0) + (time.time() - t0)
-    pending = np.nonzero(needs_msa)[0]
-    if len(pending):
+    pending = np.nonzero(pending_mask)[0]
+    if len(pending) == 0:
+        return out
+    if aligner is None and batch_msa:
         _process_mixed_clusters_batched(
             filtered, starts, ends, strands, pending, epsil, out, device, timings
         )
+        return out
+    for c in pending:
+        s, e = starts[c], ends[c]
+        llr = cluster_llr(filtered.payloads[s:e], list(filtered.quals[s:e]), epsil, aligner, timings)
+        out[int(strands[s])] = 0.0 if llr is None else llr
     return out
 
 
@@ -228,25 +354,5 @@ def _process_mixed_clusters_batched(
     aligned = align_clusters([reads for _, reads, _ in jobs], device=device, timings=timings)
     t0 = time.time()
     for (strand, _, subq), rows_out in zip(jobs, aligned):
-        rows, rq, error_q = [], [], []
-        for ordinal, aseq in rows_out:
-            if len(aseq) != PAYLOAD_NT:
-                error_q.append((subq[ordinal], aseq[-1]))
-            else:
-                rows.append(aseq)
-                rq.append(subq[ordinal])
-        if not rows:
-            llr = np.zeros(PAYLOAD_BITS, dtype=np.float64)
-            c0 = c1 = 0
-            for qq, ch in error_q:
-                if qq > Q_HIGH:
-                    lsb = dna.dna_to_bits(dna.seq_to_bytes(ch))[1]
-                    if lsb == 0:
-                        c0 += 1
-                    else:
-                        c1 += 1
-            llr[PAYLOAD_BITS - 1] = (c0 - c1) * mag
-            out[strand] = llr
-        else:
-            out[strand] = _count_llr(rows, rq, mag)
+        out[strand] = _aligned_llr(rows_out, subq, mag)
     timings["counting"] = timings.get("counting", 0.0) + (time.time() - t0)

@@ -2,15 +2,19 @@
 pool for end-to-end runs.
 
 Carried from ``dna_ldpc_tpu/pipeline/simulate.py`` as numpy code: the
-channel model, ``load_oligos`` and ``simulate_reads``. Calibration
-against shipped quality files is not ported. Sample oligos with a
-coverage distribution, apply substitution/insertion/deletion noise per
-base, and emit one quality character per read (the reference's quality
-files carry exactly one char per read, decoder.py:54,90).
+channel model, ``load_oligos``, ``simulate_reads``, and the calibration
+against the reference's per-trial quality files (``QualityModel``,
+``simulate_trial``; without the files ``simulate_trial`` draws 70,000
+reads with the parametric qualities). Sample oligos with a coverage
+distribution, apply substitution/insertion/deletion noise per base, and
+emit one quality character per read (the reference's quality files carry
+exactly one char per read, decoder.py:54,90).
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -99,6 +103,108 @@ def simulate_reads(
         rng.random(n_reads) < channel.p_low_quality, channel.q_low, channel.q_high
     ).astype(np.uint8)
     quals = [chr(q) for q in qv]
+    return reads, quals
+
+
+# ---------------------------------------------------------------------------
+# Calibration against the shipped per-trial quality files
+# ---------------------------------------------------------------------------
+
+# the reference checkout's per-trial quality files, looked for in a
+# ``reference/`` directory at the repository's root
+REFERENCE_Q_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "reference", "ex_decoder")
+
+
+@dataclass(frozen=True)
+class QualityModel:
+    """Empirical per-read quality-character distribution, fit from the
+    reference's shipped ``72000_RS_Q_<t>.txt`` files (one char per read,
+    67,926-67,981 lines/trial; decoder.py:54,90). The real distribution
+    is ~88% 'C' (Q34) with a tail crossing both decision thresholds the
+    LLR rules use ('5'=53 and '?'=63): ~1.3% below 53, ~3.0% in 53..63,
+    ~95.7% above — the parametric two-point model in ChannelModel is
+    replaced by this when calibration data is available."""
+
+    chars: tuple            # uint8 codes
+    probs: tuple            # matching probabilities
+
+    @classmethod
+    def from_counts(cls, counts: dict) -> "QualityModel":
+        total = sum(counts.values())
+        items = sorted(counts.items())
+        return cls(
+            chars=tuple(ord(k) for k, _ in items),
+            probs=tuple(v / total for _, v in items),
+        )
+
+    @classmethod
+    def from_reference(cls, path: str) -> "QualityModel":
+        counts: dict = {}
+        with open(path) as f:
+            for line in f:
+                q = line.rstrip("\n")
+                if q:
+                    counts[q] = counts.get(q, 0) + 1
+        return cls.from_counts(counts)
+
+    def sample(self, rng: np.random.Generator, n: int) -> list[str]:
+        codes = rng.choice(
+            np.asarray(self.chars, np.uint8), size=n, p=np.asarray(self.probs)
+        )
+        return [chr(c) for c in codes]
+
+
+@functools.lru_cache(maxsize=1)
+def reference_quality_model(q_dir: str = REFERENCE_Q_DIR) -> "QualityModel | None":
+    """Aggregate quality model over every shipped trial's Q file (their
+    distributions agree to ~0.1%, so pooling is sound); None when the
+    reference checkout is absent."""
+    counts: dict = {}
+    found = False
+    for t in range(10):
+        path = os.path.join(q_dir, f"72000_RS_Q_{t}.txt")
+        if not os.path.isfile(path):
+            continue
+        found = True
+        with open(path) as f:
+            for line in f:
+                q = line.rstrip("\n")
+                if q:
+                    counts[q] = counts.get(q, 0) + 1
+    return QualityModel.from_counts(counts) if found else None
+
+
+@functools.lru_cache(maxsize=16)
+def reference_read_count(trial: int, q_dir: str = REFERENCE_Q_DIR) -> int | None:
+    """Reads in the shipped trial = the Q file's line count (67,926-67,981
+    of the 72,000 sampled; the shortfall is upstream FLASH-merge loss)."""
+    path = os.path.join(q_dir, f"72000_RS_Q_{trial}.txt")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return sum(1 for _ in f)
+
+
+def simulate_trial(
+    oligos: list[str],
+    trial: int,
+    channel: ChannelModel = ChannelModel(),
+    seed: int | None = None,
+) -> tuple[list[str], list[str]]:
+    """Simulate one reference-shaped trial: the read COUNT comes from the
+    shipped trial's Q file and the quality characters are drawn from the
+    pooled empirical distribution (both fall back to the parametric
+    model without a reference checkout). Error rates keep ChannelModel's
+    documented calibration — the read blobs themselves are missing
+    upstream, so per-base rates are not observable."""
+    n = reference_read_count(trial) or 70000
+    reads, quals = simulate_reads(
+        oligos, n, channel, seed=trial if seed is None else seed
+    )
+    qm = reference_quality_model()
+    if qm is not None:
+        rng = np.random.default_rng((seed if seed is not None else trial) + 7777)
+        quals = qm.sample(rng, n)
     return reads, quals
 
 

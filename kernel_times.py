@@ -6,7 +6,8 @@ device MSA's merge — on one GPU in one call, at the shapes
 committed tree's times and bounds; this script only takes turns between
 versions.
 
-    python3 kernel_times.py --against DIR   # DIR, here, here, DIR: one JSON line of ms per turn
+    python3 kernel_times.py                 # this checkout: one JSON line of ms (and trial walls in s)
+    python3 kernel_times.py --against DIR   # DIR, here, here, DIR: one JSON line per turn
     python3 kernel_times.py --ptxas         # registers, shared memory, spills of every kernel
     python3 kernel_times.py --generic       # K1's generic kernel on other codes, tiles staged and in place
 
@@ -15,12 +16,17 @@ each turn is a process of its own that imports ``dna_ldpc_tpu_torch`` from
 its checkout. Shapes, generators and the timer come from ``chip_smoke.py``:
 K1 on 64 trial-like codewords (200 iterations), on a 1024-frame AWGN batch
 at 4.25 dB (50 iterations, early stop and fixed work) and on its first 32
-frames; K2 on 512 pairs at Lmax = 160 and on one launch of the trial's size;
+frames (and that run's bound, ``utils/roofline.py``); K2 on 512 pairs at
+Lmax = 160 and on one launch of the trial's size;
 the merge (BuildPost + MEA DP + walk: ``mea_cuda.merge_walk`` where the
 checkout has it, else ``_build_post`` into device memory followed by
 ``mea_walk``) on 512 clusters of 8 reads at the first and the last
 progressive wave and on 64 clusters of 32 reads at a refinement
-bipartition of 16 reads a side; ``mea_dp`` alone on the first wave's planes.
+bipartition of 16 reads a side (with its bound, as the others' in
+``chip_smoke.py``); ``mea_dp`` alone on the first wave's planes. Then
+``chip_smoke.py``'s phase-5 trial: one warm-up ``decode_trial``, then the
+device MSA and the ``DNA_LDPC_DEVICE_MSA=0`` flow twice in turns, each
+wall on the host clock ending in a synchronize.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -56,6 +63,45 @@ def _awgn_llrs(code, frames: int, ebno_db: float, dev):
     return (2.0 / sigma2) * ((1.0 - 2.0 * cw.float()) + math.sqrt(sigma2) * noise)
 
 
+def _k2_posteriors():
+    """K2 over read pairs in the checkout on the path: ``pairhmm.k2_posteriors``,
+    or ``align._pair_posteriors`` in checkouts that predate it."""
+    import importlib
+
+    from dna_ldpc_tpu_torch.ops.msa import pairhmm
+
+    return getattr(pairhmm, "k2_posteriors", None) or getattr(
+        importlib.import_module("dna_ldpc_tpu_torch.ops.msa.align"), "_pair_posteriors")
+
+
+def trial_walls() -> dict:
+    """Seconds of ``chip_smoke.py``'s phase-5 trial in the checkout on the
+    path, device MSA and host-aligner flow in turns, after a warm-up."""
+    import torch
+
+    from dna_ldpc_tpu_torch.pipeline.decode import TrialConfig, decode_trial
+    from trace_trial import smoke_trial
+
+    cws, reads, quals = smoke_trial()
+    walls = {"trial_device_s": [], "trial_host_s": []}
+    for flow in ("warm-up", "trial_device_s", "trial_host_s", "trial_device_s", "trial_host_s"):
+        if flow == "trial_host_s":
+            os.environ["DNA_LDPC_DEVICE_MSA"] = "0"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = decode_trial(reads, quals, cws, TrialConfig())
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            os.environ.pop("DNA_LDPC_DEVICE_MSA", None)
+        if res.fail_final:
+            raise AssertionError(f"the trial left fail_final {res.fail_final}")
+        if flow in walls:
+            walls[flow].append(round(wall, 3))
+    return walls
+
+
 def merge_times(dev) -> dict:
     """Milliseconds per batched merge of the checkout on the path (module
     docstring), of ``mea_dp`` alone and of a whole ``_merge_step`` (the two
@@ -65,6 +111,7 @@ def merge_times(dev) -> dict:
     import torch
 
     from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda
+    from dna_ldpc_tpu_torch.utils import roofline
 
     # BuildPost lives beside the merge kernels where the checkout has ``merge_walk``
     build_post = getattr(mea_cuda, "_build_post", None) or device_msa._build_post
@@ -74,7 +121,8 @@ def merge_times(dev) -> dict:
 
     merge = getattr(mea_cuda, "merge_walk", composite)
     out = {"merge_is": "merge_dp" if merge is not composite else "_build_post + mea_dp"}
-    for k, margs, step in _merge_waves(np.random.default_rng(8), dev, 8, 512, 160):
+    k2 = _k2_posteriors()
+    for k, margs, step in _merge_waves(np.random.default_rng(8), dev, 8, 512, 160, posteriors=k2):
         if k in (0, 6):
             out[f"merge_512x8_wave{k + 1}"] = _cuda_ms(lambda: merge(*margs), 10)
             out[f"merge_step_512x8_wave{k + 1}"] = _cuda_ms(lambda: device_msa._merge_step(*step), 10)
@@ -94,9 +142,12 @@ def merge_times(dev) -> dict:
             del plane
     del margs, step
     # a refinement bipartition of aligned clusters of 32 reads, 16 a side: 256 loads per cell
-    for k, margs, _ in _merge_waves(np.random.default_rng(9), dev, 32, 64, 160, consistency_iters=0):
+    for k, margs, _ in _merge_waves(np.random.default_rng(9), dev, 32, 64, 160, consistency_iters=0, posteriors=k2):
         if k == 31:
             out["merge_64x32_refine16x16"] = _cuda_ms(lambda: merge(*margs), 5)
+            _, _, _, mA, mB, wA, wB, Cmax, _ = margs
+            out["merge_64x32_refine16x16_bound"] = roofline.merge_bound_ms(
+                mA.sum(1).tolist(), mB.sum(1).tolist(), wA.tolist(), wB.tolist(), Cmax)
     return out
 
 
@@ -111,6 +162,7 @@ def measure(repo: str) -> dict:
     from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
     from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
     from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
+    from dna_ldpc_tpu_torch.utils import roofline
 
     dev, rng, code = torch.device("cuda", 0), np.random.default_rng(1), dna_storage_blocked()
     trial = _coverage_llrs(rng, group_union_codewords(code, 64, rng), 3.7, 0.02, dev)
@@ -123,9 +175,11 @@ def measure(repo: str) -> dict:
         "k1_awgn1024_50it_early": _cuda_ms(lambda: bp(code, awgn, 50), 3),
         "k1_awgn1024_50it_fixed": _cuda_ms(lambda: bp(code, awgn, 50, False), 3),
         "k1_awgn32_50it_fixed": _cuda_ms(lambda: bp(code, awgn[:32], 50, False), 3),
+        "k1_awgn32_50it_fixed_bound": roofline.k1_bound_ms(code.G * code.J * code.q, code.n_vars, [50] * 32),
         "k2_512pairs_L160": _cuda_ms(lambda: k2(*[a[:512] for a in big], 160), 10),
         f"k2_{K2_TRIAL_PAIRS}pairs_L160": _cuda_ms(lambda: k2(*big, 160), 3),
         **merge_times(dev),
+        **trial_walls(),
     }
 
 

@@ -12,7 +12,10 @@ tanh/log); K2's posteriors agree within atol = rtol = 1e-4 and its EA
 score equals the native ``mea_score`` of its own bf16-rounded posterior;
 the MEA-DP kernel's codes and positions are bit-equal to its twin's (one
 f32 add per cell, exact compares); edit distances are integers
-(bit-equal); the device MSA gives the CPU's rows; the decoder zoo's
+(bit-equal); the device MSA, ``align()`` and the k-mer clusterer give the
+CPU's rows and assignments; the general-table pair-HMM (plain torch)
+agrees with the CPU within atol = rtol = 1e-4, and ``batch_posteriors``
+within one bf16 step; the decoder zoo's
 integer-valued decoders (quantized min-sum levels, Gallager, FAID, BEC
 peeling) give the CPU's results exactly, float min-sum the CPU's outcomes
 on converging words."""
@@ -23,12 +26,13 @@ import torch
 
 from dna_ldpc_tpu_torch import native_lib
 from dna_ldpc_tpu_torch.models import BlockedCode, build_rs_ldpc, dna_storage_blocked
-from dna_ldpc_tpu_torch.ops import bp_cuda, decoders, faid
+from dna_ldpc_tpu_torch.ops import bp_cuda, cluster, decoders, faid
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
-from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, pairhmm_cuda
+from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, msa_aligner, pairhmm, pairhmm_cuda
 from dna_ldpc_tpu_torch.ops.msa.align import (
-    _ea_dists, _pair_posteriors, align_clusters, cluster_pairs, mea_score, upgma_join_order,
+    _ea_dists, align, align_clusters, cluster_pairs, mea_score, upgma_join_order,
 )
+from dna_ldpc_tpu_torch.ops.msa.ensemble import perturb_params
 from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_core
 from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
 from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
@@ -394,7 +398,7 @@ def test_run_msa_batch_on_device(dev):
             xs.append(seqs[i])
             ys.append(seqs[j])
         ids.append((c, lo, len(seqs)))
-    posts, ea = _pair_posteriors(xs, ys, Lmax, torch.device("cpu"))
+    posts, ea = pairhmm.k2_posteriors(xs, ys, Lmax, torch.device("cpu"))
     flat = np.zeros(len(clusters) * len(slot), np.int64)
     mask = np.zeros(len(flat), bool)
     inv_n = np.ones(len(clusters), np.float32)
@@ -412,3 +416,53 @@ def test_run_msa_batch_on_device(dev):
     assert mea_cuda.merge_launches > before
     want, want_ovf = device_msa.run_msa_batch(P, clusters, joins, nb, Lmax, 100, 0)
     assert got == want and np.array_equal(ovf, want_ovf) and not ovf.any()
+
+
+def test_batch_posteriors_one_pair_and_general_tables_on_device(dev):
+    """One pair through K2's route at Lmax 32 and 160, and the general-table
+    path with perturbed tables, against the CPU."""
+    rng = np.random.default_rng(12)
+    for length in (30, 150):
+        x, y = _copies(rng, 2, length)
+        before = pairhmm_cuda.launches
+        (card,) = pairhmm.batch_posteriors([x], [y], device=dev)
+        assert pairhmm_cuda.launches == before + 1
+        (host,) = pairhmm.batch_posteriors([x], [y], device="cpu")
+        np.testing.assert_allclose(card, host, atol=1e-2, rtol=1e-2)  # one bf16 step
+    xs, ys = _reads(rng, 24)
+    params = perturb_params(4)
+    enc = pairhmm._encode_batch(xs, ys, None)
+    got, tot = pairhmm._posteriors_device(*(torch.as_tensor(a, device=dev) for a in enc[:6]), enc[6], params)
+    want, want_tot = pairhmm._posteriors_device(*(torch.as_tensor(a) for a in enc[:6]), enc[6], params)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(tot.cpu(), want_tot, atol=1e-4, rtol=1e-4)
+
+
+def test_align_three_reads_on_device(dev):
+    """A 3-read cluster through align() with its pair-HMM on the card gives
+    the CPU's rows, on the native and the numpy paths, and as msa_aligner."""
+    rng = np.random.default_rng(13)
+    seqs = _copies(rng, 3)
+    want = align(seqs, refine_iters=10, device="cpu")
+    before = pairhmm_cuda.launches
+    assert align(seqs, refine_iters=10, device=dev) == want
+    assert pairhmm_cuda.launches == before + 1
+    assert align(seqs, refine_iters=10, use_native=False, device=dev) == want
+    assert msa_aligner(seqs, refine_iters=10, device=dev) == want
+
+
+def test_kmer_cluster_on_device(dev):
+    """2,048 reads of 400 strands: the similarity products above 2^18 run on
+    the card and give the CPU's assignment."""
+    rng = np.random.default_rng(14)
+    centers = [rng.integers(0, 4, 80) for _ in range(400)]
+    reads = []
+    for k in rng.integers(0, 400, 2048):
+        s = centers[k].copy()
+        sub = rng.random(80) < 0.02
+        s[sub] = (s[sub] + 1) % 4
+        reads.append("".join("ACGT"[b] for b in s))
+    got = cluster.kmer_cluster(reads, k=4, threshold=0.7, device=dev)
+    want = cluster.kmer_cluster(reads, k=4, threshold=0.7, device="cpu")
+    np.testing.assert_array_equal(got.assignment, want.assignment)
+    np.testing.assert_array_equal(got.centroids, want.centroids)

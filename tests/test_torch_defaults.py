@@ -3,16 +3,20 @@ another device: called without ``device`` on a machine without CUDA each
 raises — nothing falls back to the CPU — and with ``device="cpu"`` each
 runs."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from dna_ldpc_tpu_torch.models import LdpcGraph, build_rs_ldpc
 from dna_ldpc_tpu_torch.models.codebook import N_STRANDS, PAYLOAD_BITS
-from dna_ldpc_tpu_torch.ops import bp, product, simulation
+from dna_ldpc_tpu_torch.ops import bp, cluster, product, simulation
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
-from dna_ldpc_tpu_torch.ops.msa.align import align_clusters
-from dna_ldpc_tpu_torch.ops.msa.pairhmm import batch_post_ea
+from dna_ldpc_tpu_torch.ops.msa import msa_aligner
+from dna_ldpc_tpu_torch.ops.msa.align import align, align_clusters
+from dna_ldpc_tpu_torch.ops.msa.ensemble import ensemble_align, perturb_params
+from dna_ldpc_tpu_torch.ops.msa.pairhmm import batch_post_ea, batch_posteriors
 from dna_ldpc_tpu_torch.pipeline import decode, llr
 from dna_ldpc_tpu_torch.utils.dna import seqs_to_matrix
 
@@ -51,6 +55,45 @@ def _process_mixed_clusters(**kw):
     assert out[7].any()
 
 
+def _per_cluster_llrs(**kw):
+    _compute_trial_llrs(aligner=functools.partial(msa_aligner, **kw), batch_msa=False, **kw)
+
+
+def _host_count_llrs(**kw):
+    _compute_trial_llrs(use_native=False, **kw)  # every cluster through msa_aligner on the device
+
+
+def _align(**kw):
+    assert [r.replace("-", "") for _, r in align(READS, refine_iters=2, **kw)] == READS
+
+
+def _msa_aligner(**kw):
+    assert [r.replace("-", "") for _, r in msa_aligner(READS, refine_iters=2, **kw)] == READS
+
+
+def _batch_posteriors_k2(**kw):
+    (post,) = batch_posteriors(READS[:1], READS[1:2], **kw)
+    assert post.shape == (16, 15) and post.max() > 0.5
+
+
+def _batch_posteriors_general(**kw):
+    (post,) = batch_posteriors(READS[:1], READS[1:2], params=perturb_params(1), **kw)
+    assert post.shape == (16, 15) and post.max() > 0.5
+
+
+def _ensemble_align(**kw):
+    ens = ensemble_align(READS, replicates=2, refine_iters=2, **kw)
+    assert len(ens) == 2 and all(r.replace("-", "") == READS[o] for o, r in ens[1])
+
+
+def _kmer_cluster(**kw):
+    assert cluster.kmer_cluster(READS, k=3, **kw).n_clusters == 1
+
+
+def _super_align(**kw):
+    assert [r.replace("-", "") for _, r in cluster.super_align(READS, k=3, **kw)] == READS
+
+
 def _decode_llrs(**kw):
     graph = LdpcGraph.from_sparse(build_rs_ldpc(4, 8, 4))
     assert bool(bp.decode_llrs(graph, np.full(graph.n_vars, 4.0, np.float32), max_iter=5, **kw).success.all())
@@ -83,7 +126,8 @@ def _product_decode(**kw):
 
 ENTRY_POINTS = [
     _trial_config, _sim_config, _compute_trial_llrs, _process_mixed_clusters, _decode_llrs, _align_clusters,
-    _batch_post_ea, _edit_distance, _product_decode,
+    _batch_post_ea, _edit_distance, _product_decode, _per_cluster_llrs, _align, _msa_aligner, _batch_posteriors_k2,
+    _batch_posteriors_general, _ensemble_align, _kmer_cluster, _super_align, _host_count_llrs,
 ]
 
 

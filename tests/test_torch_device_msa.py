@@ -13,6 +13,7 @@ numpy inputs.
   rows and the host aligner's on the workloads of
   tests/test_device_msa.py."""
 
+import importlib
 import os
 import sys
 
@@ -24,9 +25,10 @@ import jax.numpy as jnp
 
 from dna_ldpc_tpu.ops.msa import device_msa as j_dm
 from dna_ldpc_tpu.ops.msa.align import _align_clusters_device as j_align_clusters_device
-from dna_ldpc_tpu_torch.ops.msa import align as t_align
 from dna_ldpc_tpu_torch.ops.msa import device_msa as t_dm
 from dna_ldpc_tpu_torch.ops.msa import mea_cuda
+
+t_align = importlib.import_module("dna_ldpc_tpu_torch.ops.msa.align")  # the package re-exports align()
 
 # The suite runs in several worker processes that share the cores: one
 # intra-op thread per process keeps OpenMP from oversubscribing them.
@@ -196,7 +198,7 @@ def test_align_clusters_device_matches_jax(monkeypatch):
     got = t_align.align_clusters(clusters, device="cpu", timings=timings)
     assert mea_cuda.launches == before
     assert got == want
-    assert got == [t_align.align(cl) for cl in clusters]
+    assert got == [t_align.align(cl, device="cpu") for cl in clusters]
     assert set(timings) == {"pairhmm", "consistency", "msa_device", "msa_collect"}
 
 
@@ -222,7 +224,7 @@ def test_overflow_falls_back_to_host(monkeypatch):
         rows = dict(out[c])
         assert len({len(r) for r in rows.values()}) == 1
         assert [rows[s].replace("-", "") for s in range(len(seqs))] == seqs
-        assert out[c] == t_align.align(seqs, refine_iters=5)
+        assert out[c] == t_align.align(seqs, refine_iters=5, device="cpu")
     assert out[3:] == [[(0, "ACGT")], []]
 
 
@@ -237,4 +239,4 @@ def test_long_reads_take_the_host_aligner_flow():
     out = t_align.align_clusters(clusters, refine_iters=5, device="cpu", timings=timings)
     assert set(timings) == {"pairhmm", "consistency", "progressive_refine"}
     assert t_align.fallback_clusters == before
-    assert out == [t_align.align(cl, refine_iters=5) for cl in clusters]
+    assert out == [t_align.align(cl, refine_iters=5, device="cpu") for cl in clusters]

@@ -169,11 +169,11 @@ def test_k2_kernel_layout(Lmax, bands):
 def test_k2_batches_are_sized_from_the_layout():
     """The MSA's K2 launches: scratch, f32 posterior and bf16 copy per pair
     under the byte budget (147,456 bytes of scratch at Lmax = 160)."""
-    from dna_ldpc_tpu_torch.ops.msa import align
+    from dna_ldpc_tpu_torch.ops.msa import pairhmm
 
     assert pairhmm_cuda.kernel_layout(160)["fm_stride"] * 4 == 147456
     per_pair = 147456 + 160 * 160 * 6
-    assert 6 < 47327 / (align.BUDGET_BYTES // per_pair) <= 7  # the 72,000-read trial's pairs in seven launches
+    assert 6 < 47327 / (pairhmm.BUDGET_BYTES // per_pair) <= 7  # the 72,000-read trial's pairs in seven launches
 
 
 @pytest.mark.parametrize("Lmax", [1024, 2000])

@@ -194,6 +194,7 @@ def box_walk(post: np.ndarray, wa: int, wb: int, Cmax: int):
     return out_codes, out_pos
 
 
+@settings(deadline=None)
 @given(st.lists(st.integers(0, 3), min_size=1, max_size=16))
 def test_pack_round_trip(codes):
     word = pack_codes(codes)

@@ -17,8 +17,7 @@ from dna_ldpc_tpu.ops.msa.align import _align_clusters_fused
 from dna_ldpc_tpu.ops.msa.align import align as j_align
 from dna_ldpc_tpu.ops.msa.align import upgma_join_order as j_upgma
 from dna_ldpc_tpu.ops.msa.consistency import _consistency_core
-from dna_ldpc_tpu_torch.ops.msa import align as align_mod
-from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
+from dna_ldpc_tpu_torch.ops.msa import pairhmm, pairhmm_cuda
 from dna_ldpc_tpu_torch.ops.msa.align import align, align_clusters, upgma_join_order
 from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_core
 
@@ -72,7 +71,7 @@ def test_align_clusters_matches_jax_fused_and_align(monkeypatch):
     assert pairhmm_cuda.launches == before  # CPU tensors: the twin ran
     assert port == fused
     assert port == [j_align(cl, refine_iters=10) for cl in clusters]
-    assert port == [align(cl, refine_iters=10) for cl in clusters]
+    assert port == [align(cl, refine_iters=10, device="cpu") for cl in clusters]
     assert set(timings) == {"pairhmm", "consistency", "progressive_refine"}
 
 
@@ -84,7 +83,7 @@ def test_align_clusters_small_budget_and_no_consistency(monkeypatch):
     clusters = _clusters(21, (2, 4, 3, 4), 24)
     single = [j_align(cl, refine_iters=5) for cl in clusters]
     with monkeypatch.context() as m:
-        m.setattr(align_mod, "BUDGET_BYTES", 1)
+        m.setattr(pairhmm, "BUDGET_BYTES", 1)
         assert align_clusters(clusters, refine_iters=5, device="cpu") == single
     raw = _align_clusters_fused(
         clusters, refine_iters=5, consistency_iters=0, seed=0, pair_chunk=128, n_workers=2

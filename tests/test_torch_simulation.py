@@ -11,8 +11,10 @@ fails runs a chaotic trajectory once its messages saturate, and the two
 packages' f32 log/exp, an ulp apart, separate such trajectories within
 about ten iterations. Then the port's own draws: error-case save, load
 and replay on the CPU, FER falling with SNR, no undetected BEC errors.
-Last, K1's twin in fixed-work mode against the Pallas kernel in interpret
-mode."""
+Then K1's twin in fixed-work mode against the Pallas kernel in interpret
+mode. Last, the read simulator's calibration half (``QualityModel``,
+``simulate_trial``) against the JAX package's on fabricated quality files
+and without them (numpy in both: equal reads and qualities)."""
 
 import dataclasses
 import json
@@ -28,10 +30,12 @@ from dna_ldpc_tpu.models.mod2 import random_codewords
 from dna_ldpc_tpu.models.rs_ldpc import build_rs_ldpc
 from dna_ldpc_tpu.ops import simulation as j_sim
 from dna_ldpc_tpu.ops.bp_pallas import bp_decode_blocked_pallas
+from dna_ldpc_tpu.pipeline import simulate as j_reads
 from dna_ldpc_tpu_torch.models.ldpc_graph import graph_from_reference
 from dna_ldpc_tpu_torch.ops import channels as t_ch
 from dna_ldpc_tpu_torch.ops import simulation as t_sim
 from dna_ldpc_tpu_torch.ops.bp_cuda import bp_decode_blocked_ref
+from dna_ldpc_tpu_torch.pipeline import simulate as t_reads
 
 # The suite runs in several worker processes that share the cores: one
 # intra-op thread per process keeps OpenMP from oversubscribing them.
@@ -221,3 +225,48 @@ def test_k1_twin_fixed_work_matches_pallas_kernel(cov_mean):
     for name in ("bits", "success", "iterations", "unsat"):
         np.testing.assert_array_equal(np.asarray(getattr(pal, name)), getattr(fixed, name).numpy(), err_msg=name)
         assert torch.equal(getattr(fixed, name), getattr(early, name)), name
+
+
+def _oligos(n=40):
+    rng = np.random.default_rng(11)
+    return ["".join("ACGT"[k] for k in rng.integers(0, 4, 152)) for _ in range(n)]
+
+
+def test_quality_model_and_simulate_trial_match_jax(tmp_path, monkeypatch):
+    rng = np.random.default_rng(4)
+    chars = np.array(list("C5?I#"))
+    for t, n in ((0, 523), (3, 611)):
+        (tmp_path / f"72000_RS_Q_{t}.txt").write_text(
+            "".join(c + "\n" for c in rng.choice(chars, n, p=[0.85, 0.05, 0.05, 0.04, 0.01]))
+        )
+    q_dir = str(tmp_path)
+    path = str(tmp_path / "72000_RS_Q_3.txt")
+    fields = dataclasses.astuple  # the two packages' QualityModel classes differ; their fields must not
+    assert fields(t_reads.QualityModel.from_reference(path)) == fields(j_reads.QualityModel.from_reference(path))
+    counts = {"C": 7, "?": 2, "5": 1}
+    qm = t_reads.QualityModel.from_counts(counts)
+    assert fields(qm) == fields(j_reads.QualityModel.from_counts(counts))
+    assert qm.sample(np.random.default_rng(1), 50) == j_reads.QualityModel.from_counts(counts).sample(
+        np.random.default_rng(1), 50)
+    assert fields(t_reads.reference_quality_model(q_dir)) == fields(j_reads.reference_quality_model(q_dir))
+    assert t_reads.reference_read_count(3, q_dir) == j_reads.reference_read_count(3, q_dir) == 611
+    assert t_reads.reference_read_count(5, q_dir) is None
+    for mod in (t_reads, j_reads):
+        monkeypatch.setattr(mod, "reference_read_count", lambda t, _f=mod.reference_read_count: _f(t, q_dir))
+        monkeypatch.setattr(mod, "reference_quality_model", lambda _f=mod.reference_quality_model: _f(q_dir))
+    oligos = _oligos()
+    for trial, seed in ((0, None), (3, 9)):
+        got = t_reads.simulate_trial(oligos, trial, seed=seed)
+        assert got == j_reads.simulate_trial(oligos, trial, seed=seed)
+        assert len(got[0]) == (523, 611)[trial == 3] and set(got[1]) <= set(chars.tolist())
+
+
+def test_simulate_trial_falls_back_without_quality_files(tmp_path, monkeypatch):
+    empty = str(tmp_path)
+    for mod in (t_reads, j_reads):
+        monkeypatch.setattr(mod, "reference_read_count", lambda t, _f=mod.reference_read_count: _f(t, empty))
+        monkeypatch.setattr(mod, "reference_quality_model", lambda _f=mod.reference_quality_model: _f(empty))
+    oligos = _oligos(8)
+    got = t_reads.simulate_trial(oligos, 2)
+    assert len(got[0]) == 70000 and set(got[1]) == {chr(40), chr(70)}  # the parametric qualities
+    assert got == j_reads.simulate_trial(oligos, 2)
