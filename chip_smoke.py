@@ -95,7 +95,29 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     ``n_anneal_iters > 0``, ``fail_final == []``, and the
     ``DNA_LDPC_DEVICE_MSA=0`` run's outcome. The pool's failures set in
     abruptly and not monotonically in the read count, so the counts are
-    fixed, not searched for.
+    fixed, not searched for;
+15. SC-LDPC windowed decoding on the card (``ops/scldpc.py``, eager torch:
+    the windows' generic BP and the shared peeling step), on the chain
+    ``couple(build_rs_ldpc(6, 6, 3), L=64, w=2)`` (12,672 x 24,576, windows
+    of W = 6: 1,152 x 3,072, not blocked) and the all-zero codeword:
+    (a) 1,024 AWGN frames through ``sliding_window_decode`` and
+    ``pipeline_decode``, which must be equal, the first 8 frames equal to
+    ``device="cpu"``, BER below the channel's; frames per second, FER, and
+    the ms per BP iteration and per peeling round of one window;
+    (b) 1,024 BEC frames through every windowed BEC variant (``_oc`` and
+    ``_step`` with eta = 2, ``_ra`` on ``ra_extend``'s layout) and the
+    global ``bec_decode_save`` / ``bec_decode_target``, each equal to
+    ``device="cpu"`` on 8 frames exactly; erasures left and wall of each;
+16. multi-process BP (``parallel/``): (a) a one-rank NCCL group, mesh
+    (cw 1, graph 1): ``make_sharded_cuda_decoder`` (K1 on the rank's
+    codeword rows) on the LLRs of phase 5's first decode, gathered over
+    ``cw``, bit-equal to ``bp_decode_blocked``; ``make_sharded_decoder``
+    and ``make_sharded_blocked_decoder`` on 64 of those words at 50
+    iterations outcome-equal to ``bp_decode_generic``, with their ms per
+    iteration beside K1's; (b) two processes sharing the card through
+    ``initialize()`` from the environment (gloo: two NCCL ranks cannot
+    share one card), mesh (cw 2, graph 1), K1 on 136 words each, the
+    gathered result bit-equal to 16a's; each rank reports its K1 launches.
 
 Phases 10-12 print the K2 launches they made. Phases 2, 3, 7 and 9c
 print each kernel's time beside its bound at the
@@ -106,7 +128,8 @@ special-function operations at 16 per clock and SM, from this run's
 shapes and the iteration counts it returned) — and the share reached.
 
 The line before the last is a JSON object with each kernel's launches on
-the trial of phase 5 (K1: plus the waterfall of phase 9a), error against
+the trial of phase 5 (K1: plus the waterfall of phase 9a and the sharded
+decodes of phase 16, its subprocesses' included), error against
 its twin, time beside the twin's and beside its bound, and
 ``library_ms`` (null: no single PyTorch call computes any of the four).
 ``mea_dp``, the plane entry of the merge kernel, is on no driven path — the
@@ -148,6 +171,45 @@ STRESS_REFERENCE = (65480, [77, 90, 106, 129, 149, 260], [90, 149], 37)
 STRESS_READS = 65340
 ZOO_POINTS = [("quantized_min_sum", "awgn", 4.75), ("gallager_b", "bsc", 0.005), ("faid", "bsc", 0.003),
               ("bec", "bec", 0.055)]
+# phase 15: the (3,6)-regular base of the SC-LDPC literature at lifting 64 (192 x 384), L = 64
+# positions, memory 2: a 12,672 x 24,576 chain, windows of 6 positions (1,152 x 3,072); the
+# all-zero codeword through AWGN at SC_EBNO and through the BEC at SC_ERASURE (where the base
+# windowed peel leaves erasures in about a fifth of the frames)
+SC_FRAMES, SC_W, SC_ITERS, SC_EBNO, SC_ERASURE = 1024, 6, 20, 2.5, 0.42
+SC_BEC_VARIANTS = [("sliding_window_bec", {}), ("sliding_window_bec_save", {}), ("sliding_window_bec_two", {}),
+                   ("sliding_window_bec_two_cross", {}), ("sliding_window_bec_two_indi", {}),
+                   ("sliding_window_bec_target", {}), ("sliding_window_bec_step", {"eta": 2}),
+                   ("sliding_window_bec_oc", {"eta": 2}), ("sliding_window_bec_ra", {})]
+SHARDED_WORDS, SHARDED_ITERS = 64, 50  # phase 16a: the check- and coset-sharded decoders
+
+# phase 16b: one rank of two that share the card, configured through the environment
+PHASE16_WORKER = r"""
+import os, sys
+import numpy as np
+import torch
+
+from dna_ldpc_tpu_torch.models.blocked import dna_storage_blocked
+from dna_ldpc_tpu_torch.ops import bp_cuda
+from dna_ldpc_tpu_torch.parallel import distributed
+from dna_ldpc_tpu_torch.parallel.sharded_bp import make_sharded_cuda_decoder
+
+inputs, out = sys.argv[1:3]
+torch.cuda.set_device(0)  # both ranks drive the one card
+torch.cuda.init()
+distributed.initialize(backend="gloo")  # two NCCL ranks cannot share one card
+mesh = distributed.global_mesh(max_graph=1)
+assert tuple(mesh.shape) == (2, 1), mesh.shape
+llr = distributed.process_local_batch(np.load(inputs)["llr"], mesh)
+decode = make_sharded_cuda_decoder(dna_storage_blocked(), mesh, 200)
+bp_cuda.launches = 0
+local = decode(llr)
+torch.cuda.synchronize()
+launches = bp_cuda.launches
+full = distributed.allgather_result(local, mesh)
+if int(os.environ["RANK"]) == 0:
+    np.savez(out, **{f: getattr(full, f).cpu().numpy() for f in ("bits", "success", "iterations", "unsat")})
+print("RANK", os.environ["RANK"], "ROWS", llr.shape[0], "K1_LAUNCHES", launches, flush=True)
+"""
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -621,6 +683,219 @@ def _kmer_cluster_phase(dev, n_oligos: int = 18432, n_reads: int = 72000, n_supe
           f"card {wall_sa:.2f} s, K2 launches {launches}")
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _timed(fn):
+    """(fn's result, seconds on the card's side of a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def _scldpc_phase(dev) -> None:
+    """Phase 15 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.models.ldpc_graph import LdpcGraph
+    from dna_ldpc_tpu_torch.models.rs_ldpc import build_rs_ldpc
+    from dna_ldpc_tpu_torch.models.scldpc import couple
+    from dna_ldpc_tpu_torch.ops import bp_cuda, scldpc
+    from dna_ldpc_tpu_torch.ops.bp import bp_decode_generic
+    from dna_ldpc_tpu_torch.ops.decoders import peel_values
+
+    t0 = time.time()
+    chain = couple(build_rs_ldpc(6, 6, 3), L=64, w=2, seed=0)
+    graph, ra_graph = scldpc._window_graph(chain, SC_W), scldpc._ra_window_graph(chain, SC_W)
+    full = LdpcGraph.from_sparse(chain.H)
+    t_build = time.time() - t0
+    if graph.blocked is not None or (graph.n_checks, graph.n_vars) != (1152, 3072):
+        raise AssertionError("the window graph is not the irregular 1152 x 3072 window")
+    N, F = chain.n_vars, SC_FRAMES
+    rate = 1 - chain.n_checks / N
+    sigma = math.sqrt(1 / (2 * rate * 10 ** (SC_EBNO / 10)))
+    rng = np.random.default_rng(15)
+    llr = (2 * (1 + sigma * rng.standard_normal((F, N))) / sigma**2).astype(np.float32)  # all-zero word, BPSK +1
+    print(f"[15] SC-LDPC chain couple(build_rs_ldpc(6, 6, 3), L=64, w=2): {chain.n_checks} x {N} (rate {rate:.4f}), "
+          f"windows of W={SC_W}: {graph.n_checks} x {graph.n_vars}, dc {graph.dc_max}, dv {graph.dv_max}, not blocked; "
+          f"RA windows {ra_graph.n_checks} x {ra_graph.n_vars}; built in {t_build:.2f} s (host)")
+
+    # (a) windowed BP: sliding window and the pipelined schedule, 1024 AWGN frames
+    launches = bp_cuda.launches
+    sw, t_sw = _timed(lambda: scldpc.sliding_window_decode(chain, llr, W=SC_W, iters=SC_ITERS, device=dev))
+    pl, t_pl = _timed(lambda: scldpc.pipeline_decode(chain, llr, W=SC_W, iters=SC_ITERS, device=dev))
+    if bp_cuda.launches != launches:
+        raise AssertionError("windowed BP launched the K1 kernel")
+    if not np.array_equal(pl, sw):
+        raise AssertionError(f"pipeline_decode differs from sliding_window_decode in {int((pl != sw).sum())} bits")
+    cpu = scldpc.sliding_window_decode(chain, llr[:8], W=SC_W, iters=SC_ITERS, device="cpu")
+    if not np.array_equal(cpu, sw[:8]):
+        raise AssertionError("sliding_window_decode on the card differs from the CPU on 8 frames")
+    raw_ber, ber = float((llr < 0).mean()), float(sw.mean())
+    print(f"[15a] windowed BP, {F} AWGN frames at Eb/No {SC_EBNO} dB (channel BER {raw_ber:.4f}), {SC_ITERS} iterations "
+          f"a window: FER {float(sw.any(1).mean()):.4f}, BER {ber:.3e}; sliding_window_decode {chain.L} windows "
+          f"{t_sw:.2f} s ({F / t_sw:.0f} frames/s); pipeline_decode {chain.L + F - 1} ticks {t_pl:.2f} s "
+          f"({F / t_pl:.0f} frames/s), equal to the sliding window; 8 frames equal to device='cpu'")
+    if not ber < raw_ber:
+        raise AssertionError(f"windowed BP leaves BER {ber} above the channel's {raw_ber}")
+    win = torch.as_tensor(llr[:, : graph.n_vars], device=dev)
+    per_iter = [_cuda_ms(lambda: bp_decode_generic(graph, win[:b], SC_ITERS, early_stop=False), 3) / SC_ITERS
+                for b in (SMALL_BATCH, F)]
+    erased = torch.as_tensor(np.where(rng.random((F, graph.n_vars)) < SC_ERASURE, 2, 0).astype(np.int8), device=dev)
+    per_round = [_cuda_ms(lambda: peel_values(graph, erased[:b], 1), 10) for b in (SMALL_BATCH, F)]
+    print(f"[15a] on one window at batch {SMALL_BATCH} / {F}: generic BP {per_iter[0]:.3f} / {per_iter[1]:.3f} ms per "
+          f"iteration (fixed work); a peeling round {per_round[0]:.3f} / {per_round[1]:.3f} ms (its host sync included)")
+
+    # (b) every windowed BEC variant and the global peels, 1024 BEC frames, each equal to the CPU on 8 frames
+    vals = np.where(rng.random((F, N)) < SC_ERASURE, 2, 0).astype(np.int8)
+    ra_vals = np.where(rng.random((F, N + chain.n_checks)) < SC_ERASURE, 2, 0).astype(np.int8)
+    runs = [(name, (lambda name=name, kw=kw: lambda v, device: getattr(scldpc, name)(
+        chain, v, W=SC_W, **kw, device=device))()) for name, kw in SC_BEC_VARIANTS]
+    runs += [("bec_decode_save", lambda v, device: scldpc.bec_decode_save(full, v, [chain.b_v] * chain.L,
+                                                                            device=device)),
+             ("bec_decode_target", lambda v, device: scldpc.bec_decode_target(full, v, (1, N // 4), device=device))]
+    lines = []
+    for name, run in runs:
+        v = ra_vals if name == "sliding_window_bec_ra" else vals
+        out, wall = _timed(lambda: run(v, dev))
+        small, host = run(v[:8], dev), run(v[:8], "cpu")
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,) for x in (small, host))):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: the card differs from the CPU on 8 frames")
+        bits = out[0] if isinstance(out, tuple) else out
+        # frames are independent, but for bec_decode_target's exit: the whole batch's target is clean
+        if name != "bec_decode_target" and not np.array_equal(bits[:8], small[0] if isinstance(small, tuple) else small):
+            raise AssertionError(f"{name}: 8 frames decode otherwise inside the batch of {F}")
+        extra = (f", {out[2]} rounds" if name == "bec_decode_save" else
+                 f", {out[1]} rounds, target clean {out[2]}" if name == "bec_decode_target" else "")
+        lines.append(f"{name.replace('sliding_window_bec', 'sw')} {int((bits == 2).sum())} erasures left in "
+                     f"{int((bits == 2).any(1).sum())} frames, {wall:.2f} s{extra}")
+        if (bits == 1).any():
+            raise AssertionError(f"{name} decoded a bit of the all-zero word to 1")
+    print(f"[15b] {F} BEC frames at erasure rate {SC_ERASURE} ({int((vals == 2).sum())} erasures; RA layout "
+          f"{N + chain.n_checks} variables), each equal to device='cpu' on 8 frames: " + "; ".join(lines))
+
+
+def _multiprocess_phase(dev, llr_trial) -> int:
+    """Phase 16 (see the module docstring): ``llr_trial`` [272, N] are the
+    LLRs of phase 5's first decode. Returns K1's launches on the sharded
+    path (16a's rank and the two ranks of 16b)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dna_ldpc_tpu_torch.models.blocked import dna_storage_blocked
+    from dna_ldpc_tpu_torch.models.ldpc_graph import LdpcGraph
+    from dna_ldpc_tpu_torch.models.rs_ldpc import dna_storage_pchk
+    from dna_ldpc_tpu_torch.ops import bp_cuda
+    from dna_ldpc_tpu_torch.ops.bp import bp_decode_generic
+    from dna_ldpc_tpu_torch.parallel import distributed
+    from dna_ldpc_tpu_torch.parallel.mesh import build_mesh
+    from dna_ldpc_tpu_torch.parallel.sharded_bp import (
+        make_sharded_blocked_decoder, make_sharded_cuda_decoder, make_sharded_decoder,
+    )
+
+    code = dna_storage_blocked()
+    graph = LdpcGraph.from_sparse(dna_storage_pchk(), detect_blocked=False)
+    # (a) one NCCL rank on the card, mesh (1, 1); a failed NCCL group fails the phase
+    torch.cuda.set_device(dev)
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh()
+        t_init = time.time() - t0
+        if tuple(mesh.shape) != (1, 1) or dist.get_backend() != "nccl":
+            raise AssertionError(f"mesh {tuple(mesh.shape)} over {dist.get_backend()}")
+        x = distributed.process_local_batch(llr_trial, mesh)
+        decode = make_sharded_cuda_decoder(code, mesh, 200)
+
+        def first_call():
+            r = decode(x)
+            return r, distributed.allgather_result(r, mesh)
+
+        bp_cuda.launches = 0
+        (local, got), t_first = _timed(first_call)
+        launches = bp_cuda.launches
+        _same(got, bp_cuda.bp_decode_blocked(code, torch.as_tensor(llr_trial, device=dev), 200),
+              "make_sharded_cuda_decoder vs bp_decode_blocked")
+        if launches != 1:
+            raise AssertionError(f"the sharded K1 decoder launched K1 {launches} times")
+        # warm: NCCL makes its communicator at the first collective, the first call's gather
+        warm = [_cuda_ms(fn, 5) for fn in (lambda: decode(x), lambda: bp_cuda.bp_decode_blocked(code, x, 200),
+                                           lambda: distributed.allgather_result(local, mesh))]
+        print(f"[16a] one NCCL rank, mesh (cw 1, graph 1), process group and mesh in {t_init:.2f} s: "
+              f"make_sharded_cuda_decoder on phase 5's {len(llr_trial)} trial words (200 iterations), gathered over cw, "
+              f"bit-equal to bp_decode_blocked (bits, success, iterations, unsat), K1 launches {launches}; first call "
+              f"{t_first * 1e3:.2f} ms (the NCCL communicator made at its gather); warm: the sharded decoder {warm[0]:.3f} "
+              f"ms, bp_decode_blocked {warm[1]:.3f} ms, the gather {warm[2]:.3f} ms")
+        words = x[:SHARDED_WORDS]
+        ref = bp_decode_generic(graph, words, SHARDED_ITERS)
+        ok, its = ref.success.cpu(), max(int(ref.iterations.max()), 1)
+        decoders = {"bp_decode_generic": lambda w: bp_decode_generic(graph, w, SHARDED_ITERS),
+                    "K1": lambda w: bp_cuda.bp_decode_blocked(code, w, SHARDED_ITERS),
+                    "make_sharded_decoder": make_sharded_decoder(graph, mesh, SHARDED_ITERS),
+                    "make_sharded_blocked_decoder": make_sharded_blocked_decoder(code, mesh, SHARDED_ITERS)}
+        for name in ("make_sharded_decoder", "make_sharded_blocked_decoder"):
+            res = decoders[name](words)
+            if not torch.equal(res.success.cpu(), ok):
+                raise AssertionError(f"{name}: success differs from bp_decode_generic")
+            if not torch.equal(res.bits.cpu()[ok], ref.bits.cpu()[ok]):
+                raise AssertionError(f"{name}: bits differ from bp_decode_generic on converged words")
+        timings = [f"{name} {_cuda_ms(lambda: fn(words), 3) / its:.3f}" for name, fn in decoders.items()]
+        print(f"[16a] {SHARDED_WORDS} trial words of the deployed code, {SHARDED_ITERS} iterations "
+              f"({int(ok.sum())} converge, at most {its} iterations): make_sharded_decoder and "
+              f"make_sharded_blocked_decoder outcome-equal to bp_decode_generic (success; bits where converged); warm "
+              f"ms per iteration of the longest word: " + ", ".join(timings))
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two processes sharing the card, configured through the environment, mesh (2 cw, 1 graph)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        inputs, out = os.path.join(d, "llr.npz"), os.path.join(d, "out.npz")
+        np.savez(inputs, llr=llr_trial)
+        port = str(_free_port())
+        procs = []
+        t0 = time.time()
+        try:
+            for rank in range(2):
+                env = {**os.environ, "PYTHONPATH": REPO, "MASTER_ADDR": "localhost", "MASTER_PORT": port,
+                       "WORLD_SIZE": "2", "RANK": str(rank), "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": "2"}
+                procs.append(subprocess.Popen([sys.executable, "-c", PHASE16_WORKER, inputs, out], cwd=REPO, env=env,
+                                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            texts = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        wall = time.time() - t0
+        for rank, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 16b rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+        reports = [line.split() for text in texts for line in text.splitlines() if line.startswith("RANK ")]
+        rows = [int(r[3]) for r in reports]
+        sub_launches = sum(int(r[5]) for r in reports)
+        saved = np.load(out)
+        for name in ("bits", "success", "iterations", "unsat"):
+            if not np.array_equal(saved[name], getattr(got, name).cpu().numpy()):
+                raise AssertionError(f"phase 16b: the gathered {name} differs from phase 16a's")
+    if sorted(rows) != [len(llr_trial) // 2] * 2 or sub_launches != 2:
+        raise AssertionError(f"phase 16b ranks report rows {rows}, K1 launches {sub_launches}")
+    print(f"[16b] two processes on the card through initialize() from the environment (gloo), mesh (cw 2, graph 1): "
+          f"K1 on {rows[0]} words per rank, the all-gather over cw bit-equal to phase 16a; K1 launches {sub_launches} "
+          f"(reported by the ranks); {wall:.2f} s with process start-up")
+    return launches + sub_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -628,6 +903,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_main = time.time()
 
     from dna_ldpc_tpu_torch import cuda_lib, native_lib
     from dna_ldpc_tpu_torch.models.blocked import dna_storage_blocked
@@ -957,9 +1233,18 @@ def main() -> int:
     for name in ("fail_first", "fail_final", "n_anneal_iters"):
         if getattr(rs0, name) != getattr(rs, name):
             raise AssertionError(f"stress point: {name} differs between the device MSA and the host-aligner flow")
+    # ---- 15. SC-LDPC windowed decoders; 16. multi-process BP ---------------
+    t15 = time.time()
+    _scldpc_phase(dev)
+    t16 = time.time()
+    k1_sharded_launches = _multiprocess_phase(dev, np.ascontiguousarray(llr_dev.T, np.float32))
+    print(f"[15-16] phase 15 {t16 - t15:.2f} s, phase 16 {time.time() - t16:.2f} s; the script so far "
+          f"{time.time() - t_main:.2f} s")
+
     kernels = [
         {"name": "bp_blocked", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/bp_blocked.cu",
-         "replaces": "dna_ldpc_tpu/ops/bp_pallas.py:55", "launches": launches["bp_blocked"] + k1_sim_launches,
+         "replaces": "dna_ldpc_tpu/ops/bp_pallas.py:55",
+         "launches": launches["bp_blocked"] + k1_sim_launches + k1_sharded_launches,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
         {"name": "pairhmm", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/pairhmm.cu",

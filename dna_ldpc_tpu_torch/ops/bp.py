@@ -42,17 +42,16 @@ class BpResult:
     unsat: torch.Tensor       # [B] int32: unsatisfied checks at stop
 
 
-def _exclusive_prod(t: torch.Tensor) -> torch.Tensor:
-    """Per-row exclusive product along the last axis, as whole-row
-    reductions (sign parity + log-magnitude sums + zero counting). Zero
-    factors stay exact: an excluded product is zero iff it contains a
-    zero factor."""
+def _exclusive_prod(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Per-row exclusive product along ``dim``, as whole-row reductions
+    (sign parity + log-magnitude sums + zero counting). Zero factors stay
+    exact: an excluded product is zero iff it contains a zero factor."""
     is_zero = t == 0
     neg = t < 0
     logabs = torch.log(torch.where(is_zero, torch.ones_like(t), t.abs()))
-    sum_log = logabs.sum(-1, keepdim=True)
-    excl_zero = is_zero.sum(-1, keepdim=True) - is_zero.long()
-    excl_neg = neg.sum(-1, keepdim=True) - neg.long()
+    sum_log = logabs.sum(dim, keepdim=True)
+    excl_zero = is_zero.sum(dim, keepdim=True) - is_zero.long()
+    excl_neg = neg.sum(dim, keepdim=True) - neg.long()
     mag = torch.exp(sum_log - logabs)
     sign = 1.0 - 2.0 * (excl_neg % 2).to(t.dtype)
     return torch.where(excl_zero > 0, torch.zeros_like(t), sign * mag)

@@ -14,7 +14,9 @@ device, over the same dense edge tables as the generic BP decoder:
   quantizers;
 - ``gallager_decode``: Gallager A/B/majority on +/-1 int8 messages
   (Run_Gallager_Decoder, dec.cpp:699-835), counts in int32;
-- ``bec_peel``: erasure-channel peeling (dec.cpp:243-580).
+- ``bec_peel``: erasure-channel peeling (dec.cpp:243-580); its rounds,
+  ``peel_values``, are also the step of the windowed BEC decoders
+  (``ops/scldpc.py``).
 
 All but peeling run the generic BP decoder's loop (``bp._iterate``, the
 reference's control flow: syndrome check before each iteration, stop at
@@ -189,13 +191,13 @@ def gallager_decode(graph: LdpcGraph, hard_bits: torch.Tensor, max_iter: int = 2
                     check_update, var_update)
 
 
-def bec_peel(graph: LdpcGraph, values: torch.Tensor, max_iter: int = 200) -> BpResult:
-    """Peeling decoder for the binary erasure channel. values: [B, N] with
-    0/1 known bits and 2 marking erasures. Each pass solves every check
-    with exactly one erased variable; checks that cannot solve write to a
-    dummy slot N. Two checks solving one variable write the same value on
-    the BEC, so the order of the scatter never shows."""
-    vals = torch.atleast_2d(values).to(torch.int8)
+def _peel(graph: LdpcGraph, vals: torch.Tensor, max_iter: int) -> tuple[torch.Tensor, int]:
+    """Peeling rounds on int8 values [B, N] (0/1 known, 2 erased) until
+    ``max_iter`` rounds or a round that changes nothing; returns the
+    values and the rounds run. Each round solves every check with exactly
+    one erased variable; checks that cannot solve write to a dummy slot N.
+    Two checks solving one variable write the same value on the BEC, so
+    the order of the scatter never shows. One host sync per round."""
     tabs = graph.to(vals.device)
     B = vals.shape[0]
     M, N, dc = graph.n_checks, graph.n_vars, graph.dc_max
@@ -216,7 +218,24 @@ def bec_peel(graph: LdpcGraph, values: torch.Tensor, max_iter: int = 200) -> BpR
         changed = bool((new_vals != vals).any())
         vals = new_vals
         n += 1
-    bits = torch.where(vals == ERASE_MARK, zero, vals).to(torch.uint8)
+    return vals, n
+
+
+def peel_values(graph: LdpcGraph, values: torch.Tensor, max_iter: int) -> torch.Tensor:
+    """BEC peeling on ``values``' device, returning the values themselves
+    (int8 [B, N]: bits where resolved, 2 where still erased) — the step
+    the windowed BEC decoders of ``ops/scldpc.py`` share with
+    ``bec_peel`` (the JAX package's ``scldpc._peel_values``)."""
+    return _peel(graph, torch.atleast_2d(values).to(torch.int8), max_iter)[0]
+
+
+def bec_peel(graph: LdpcGraph, values: torch.Tensor, max_iter: int = 200) -> BpResult:
+    """Peeling decoder for the binary erasure channel. values: [B, N] with
+    0/1 known bits and 2 marking erasures (``peel_values``' rounds)."""
+    vals, n = _peel(graph, torch.atleast_2d(values).to(torch.int8), max_iter)
+    B = vals.shape[0]
+    tabs = graph.to(vals.device)
+    bits = vals.masked_fill(vals == ERASE_MARK, 0).to(torch.uint8)
     unsat = _syndrome_unsat(bits.long(), tabs.check_vars, tabs.check_mask)
     resolved = ~(vals == ERASE_MARK).any(1)
     return BpResult(

@@ -466,3 +466,30 @@ def test_kmer_cluster_on_device(dev):
     want = cluster.kmer_cluster(reads, k=4, threshold=0.7, device="cpu")
     np.testing.assert_array_equal(got.assignment, want.assignment)
     np.testing.assert_array_equal(got.centroids, want.centroids)
+
+
+def test_sharded_cuda_decoder_one_rank_nccl(dev, tmp_path):
+    """Codeword-axis data parallelism on a one-rank NCCL group, mesh (1, 1):
+    the rank's K1 decode, gathered over ``cw``, equals ``bp_decode_blocked``
+    on the same LLRs bit for bit, with one launch."""
+    import torch.distributed as dist
+
+    from dna_ldpc_tpu_torch.parallel import distributed
+    from dna_ldpc_tpu_torch.parallel.mesh import build_mesh
+    from dna_ldpc_tpu_torch.parallel.sharded_bp import make_sharded_cuda_decoder
+
+    code = dna_storage_blocked()
+    _, llr = _coverage_llrs(code, 48, 3.7, 0.02, seed=23)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        mesh = build_mesh()
+        assert tuple(mesh.shape) == (1, 1)
+        local = distributed.process_local_batch(llr, mesh)
+        before = bp_cuda.launches
+        got = distributed.allgather_result(make_sharded_cuda_decoder(code, mesh, 200)(local), mesh)
+        torch.cuda.synchronize()
+        assert bp_cuda.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    _same_bp(got, bp_cuda.bp_decode_blocked(code, torch.from_numpy(llr).to(dev), 200))

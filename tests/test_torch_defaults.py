@@ -11,7 +11,8 @@ import torch
 
 from dna_ldpc_tpu_torch.models import LdpcGraph, build_rs_ldpc
 from dna_ldpc_tpu_torch.models.codebook import N_STRANDS, PAYLOAD_BITS
-from dna_ldpc_tpu_torch.ops import bp, cluster, product, simulation
+from dna_ldpc_tpu_torch.models.scldpc import couple
+from dna_ldpc_tpu_torch.ops import bp, cluster, product, scldpc, simulation
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
 from dna_ldpc_tpu_torch.ops.msa import msa_aligner
 from dna_ldpc_tpu_torch.ops.msa.align import align, align_clusters
@@ -124,11 +125,60 @@ def _product_decode(**kw):
     assert not bits.any() and bool(ok.all())
 
 
+@functools.cache
+def _chain():
+    return couple(build_rs_ldpc(3, 6, 3), L=8, w=1, seed=1)
+
+
+def _sc_window(name, **args):
+    """An SC-LDPC decoder on the all-zero word of the small chain: BP on
+    clean LLRs, the BEC variants with one erasure."""
+    def run(**kw):
+        chain = _chain()
+        n = chain.n_vars + (chain.n_checks if name == "sliding_window_bec_ra" else 0)
+        if name in ("sliding_window_decode", "pipeline_decode"):
+            values = np.full((2, n), 4.0, np.float32)
+        else:
+            values = np.zeros((2, n), np.int8)
+            values[:, 50] = 2
+        out = getattr(scldpc, name)(chain, values, W=3, **args, **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        assert out.shape == (2, n) and not out.any()
+
+    run.__name__ = "_" + name
+    return run
+
+
+def _bec_decode_save(**kw):
+    chain = _chain()
+    values = np.zeros((1, chain.n_vars), np.int8)
+    values[0, 50] = 2
+    out, trace, n = scldpc.bec_decode_save(LdpcGraph.from_sparse(chain.H), values, [chain.b_v] * chain.L, **kw)
+    assert not out.any() and trace[0].sum() > 0 and trace[-1].sum() == 0
+
+
+def _bec_decode_target(**kw):
+    chain = _chain()
+    values = np.zeros((1, chain.n_vars), np.int8)
+    values[0, 50] = 2
+    out, _, clean = scldpc.bec_decode_target(LdpcGraph.from_sparse(chain.H), values, (1, chain.n_vars), **kw)
+    assert clean and not out.any()
+
+
+SC_ENTRY_POINTS = [
+    _sc_window(name, **args) for name, args in [
+        ("sliding_window_decode", {}), ("pipeline_decode", {}), ("sliding_window_bec", {}),
+        ("sliding_window_bec_save", {}), ("sliding_window_bec_two", {}), ("sliding_window_bec_two_cross", {}),
+        ("sliding_window_bec_two_indi", {}), ("sliding_window_bec_target", {}), ("sliding_window_bec_step", {"eta": 2}),
+        ("sliding_window_bec_ra", {}), ("sliding_window_bec_oc", {"eta": 2}),
+    ]
+] + [_bec_decode_save, _bec_decode_target]
+
 ENTRY_POINTS = [
     _trial_config, _sim_config, _compute_trial_llrs, _process_mixed_clusters, _decode_llrs, _align_clusters,
     _batch_post_ea, _edit_distance, _product_decode, _per_cluster_llrs, _align, _msa_aligner, _batch_posteriors_k2,
     _batch_posteriors_general, _ensemble_align, _kmer_cluster, _super_align, _host_count_llrs,
-]
+] + SC_ENTRY_POINTS
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS, ids=lambda f: f.__name__.lstrip("_"))
