@@ -31,14 +31,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    flow) must give the same ``fail_first``, ``fail_final`` and
    ``n_anneal_iters``; the number of LLR-table entries that differ is
    printed;
-7. the merge kernels of the device MSA against their twins on a bucket-8
+7. the merge kernel of the device MSA against its twin on a bucket-8
    batch of 512 clusters (reads as in phase 3, Lmax = 160, Cmax = 192),
    codes and positions bit-equal: ``merge_dp`` (BuildPost + MEA DP + walk
    from the pair posteriors) at the first progressive wave (single reads
-   a side) and at the last (several gapped reads a side), beside the time
-   of BuildPost into device memory followed by ``mea_dp``; and ``mea_dp``
-   (the same DP for a caller that holds the plane) on the first wave's
-   BuildPost planes, which must also give ``merge_dp``'s path;
+   a side) and at the last (several gapped reads a side);
 8. the same trial once more through the command line,
    ``python -m dna_ldpc_tpu_torch.cli simulate``, on codeword and oligo
    files written to a temporary directory in the reference's formats;
@@ -117,9 +114,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     iteration beside K1's; (b) two processes sharing the card through
     ``initialize()`` from the environment (gloo: two NCCL ranks cannot
     share one card), mesh (cw 2, graph 1), K1 on 136 words each, the
-    gathered result bit-equal to 16a's; each rank reports its K1 launches.
+    gathered result bit-equal to 16a's; each rank reports its K1 launches;
+17. the batched consistency transform, ``consistency_clusters``, on the
+    card and with ``device="cpu"``, on the pair posteriors (K2, Lmax = 160,
+    its launches reset just before and read just after) of the first 1,024
+    of phase 10's MSA clusters of phase 5's reads: within atol = 2e-5,
+    rtol = 1e-4 of each other, the clusters the routing passes through or
+    sends to the host loop bit-equal; the clusters per bucket, the host
+    loop's share and the walls of both calls beside the card's name and
+    power limit.
 
-Phases 10-12 print the K2 launches they made. Phases 2, 3, 7 and 9c
+Phases 10-12 and 17 print the K2 launches they made. Phases 2, 3, 7 and 9c
 print each kernel's time beside its bound at the
 timed shape — the least time the card could take for that work
 (``dna_ldpc_tpu_torch/utils/roofline.py``: the bytes that must move at
@@ -131,11 +136,8 @@ The line before the last is a JSON object with each kernel's launches on
 the trial of phase 5 (K1: plus the waterfall of phase 9a and the sharded
 decodes of phase 16, its subprocesses' included), error against
 its twin, time beside the twin's and beside its bound, and
-``library_ms`` (null: no single PyTorch call computes any of the four).
-``mea_dp``, the plane entry of the merge kernel, is on no driven path — the
-trial's merges launch ``merge_dp`` — so its count on the trial is 0 and it
-is held against its twin in phase 7 only. The
-last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
+``library_ms`` (null: no single PyTorch call computes any of the three).
+The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
@@ -181,6 +183,8 @@ SC_BEC_VARIANTS = [("sliding_window_bec", {}), ("sliding_window_bec_save", {}), 
                    ("sliding_window_bec_target", {}), ("sliding_window_bec_step", {"eta": 2}),
                    ("sliding_window_bec_oc", {"eta": 2}), ("sliding_window_bec_ra", {})]
 SHARDED_WORDS, SHARDED_ITERS = 64, 50  # phase 16a: the check- and coset-sharded decoders
+# phase 17: the first of phase 10's 1,086 MSA clusters, routed with consistency_clusters' default
+CONSISTENCY_CLUSTERS, MIN_DEVICE_CLUSTERS = 1024, 4
 
 # phase 16b: one rank of two that share the card, configured through the environment
 PHASE16_WORKER = r"""
@@ -208,6 +212,10 @@ launches = bp_cuda.launches
 full = distributed.allgather_result(local, mesh)
 if int(os.environ["RANK"]) == 0:
     np.savez(out, **{f: getattr(full, f).cpu().numpy() for f in ("bits", "success", "iterations", "unsat")})
+# leave together and tear the groups down before exit: a gloo group left to the
+# interpreter's shutdown can abort a rank whose peers have already gone
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 print("RANK", os.environ["RANK"], "ROWS", llr.shape[0], "K1_LAUNCHES", launches, flush=True)
 """
 
@@ -896,6 +904,75 @@ def _multiprocess_phase(dev, llr_trial) -> int:
     return launches + sub_launches
 
 
+def _consistency_phase(dev, clusters, card: str) -> None:
+    """Phase 17: ``consistency_clusters`` on the card against
+    ``device="cpu"`` on the K2 pair posteriors of ``clusters`` (the first
+    CONSISTENCY_CLUSTERS of phase 10's MSA clusters); ``card`` is the
+    nvidia-smi line of the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
+    from dna_ldpc_tpu_torch.ops.msa.align import cluster_pairs
+    from dna_ldpc_tpu_torch.ops.msa.consistency import N_BUCKETS, consistency_clusters
+    from dna_ldpc_tpu_torch.ops.msa.pairhmm import k2_posteriors
+
+    if len(clusters) < CONSISTENCY_CLUSTERS:
+        raise AssertionError(f"phase 10 gave only {len(clusters)} MSA clusters")
+    clusters = clusters[:CONSISTENCY_CLUSTERS]
+    Lmax = 160
+    pairs = [cluster_pairs(len(cl)) for cl in clusters]
+    xs = [cl[i] for cl, prs in zip(clusters, pairs) for i, _ in prs]
+    ys = [cl[j] for cl, prs in zip(clusters, pairs) for _, j in prs]
+    pairhmm_cuda.launches = 0
+    torch.cuda.synchronize()
+    posts, _ = k2_posteriors(xs, ys, Lmax, dev)
+    torch.cuda.synchronize()
+    k2_launches = pairhmm_cuda.launches
+    flat = []  # each pair's posterior, cropped to its reads, f32 on the host
+    for lo in range(0, len(xs), 1024):
+        block = posts[lo : lo + 1024].float().cpu().numpy()
+        flat += [block[k, : len(xs[lo + k]), : len(ys[lo + k])].copy() for k in range(len(block))]
+    del posts
+    cluster_posts, lo = [], 0
+    for prs in pairs:
+        cluster_posts.append(flat[lo : lo + len(prs)])
+        lo += len(prs)
+
+    # the routing consistency_clusters applies (its docstring), for the report and the exact check:
+    # bucket None passes through, bucket 0 (above the top one) takes the host loop
+    bucket_of = [None if len(cl) < 3 else next((b for b in N_BUCKETS if b >= len(cl)), 0) for cl in clusters]
+    per_bucket = {b: bucket_of.count(b) for b in sorted({b for b in bucket_of if b})}
+    exact = [b is None or b == 0 or per_bucket[b] < MIN_DEVICE_CLUSTERS for b in bucket_of]
+    n_host = sum(e and b is not None for e, b in zip(exact, bucket_of))
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    card_out = consistency_clusters(cluster_posts, min_device_clusters=MIN_DEVICE_CLUSTERS, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu_out = consistency_clusters(cluster_posts, min_device_clusters=MIN_DEVICE_CLUSTERS, device="cpu")
+    cpu_s = time.time() - t0
+    err = 0.0
+    for c, (a_list, b_list) in enumerate(zip(card_out, cpu_out)):
+        for a, b, p in zip(a_list, b_list, cluster_posts[c]):
+            if a.shape != p.shape or b.shape != p.shape or not np.isfinite(a).all():
+                raise AssertionError(f"cluster {c}: shapes {a.shape}, {b.shape} for {p.shape}, or values not finite")
+            if exact[c] and not np.array_equal(a, b):
+                raise AssertionError(f"cluster {c} took the host loop or passed through, yet differs from the CPU's")
+            if not np.allclose(a, b, atol=2e-5, rtol=1e-4):
+                raise AssertionError(f"cluster {c}: the card differs from the CPU (max abs {np.abs(a - b).max():.3e})")
+            err = max(err, float(np.abs(a - b).max(initial=0.0)))
+    print(f"[17] consistency_clusters on the card: the first {len(clusters)} MSA clusters of phase 5's reads (phase "
+          f"10's), {len(xs)} pairs, posteriors from K2 at Lmax={Lmax} ({k2_launches} K2 launches); clusters per bucket "
+          f"{per_bucket}, passed through (n < 3) {bucket_of.count(None)}, host loop {n_host} "
+          f"({100 * n_host / len(clusters):.1f} %); max abs diff vs device='cpu' {err:.3e} (atol 2e-5, rtol 1e-4), "
+          f"pass-through and host-loop clusters equal; card {card_s:.3f} s, device='cpu' {cpu_s:.3f} s ({card})")
+    if k2_launches == 0:
+        raise AssertionError("phase 17 never launched K2")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1068,7 +1145,7 @@ def main() -> int:
         launches, MSA clusters, host-aligner fallbacks, wall seconds)."""
         bp_cuda.launches = 0
         pairhmm_cuda.launches = pairhmm_cuda.pairs = 0
-        mea_cuda.launches = mea_cuda.merge_launches = 0
+        mea_cuda.merge_launches = 0
         msa_align.msa_clusters = msa_align.fallback_clusters = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1076,7 +1153,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {"bp_blocked": bp_cuda.launches, "pairhmm": pairhmm_cuda.launches,
-                    "merge_dp": mea_cuda.merge_launches, "mea_dp": mea_cuda.launches}
+                    "merge_dp": mea_cuda.merge_launches}
         return res, llr_tables[-1], launches, msa_align.msa_clusters, msa_align.fallback_clusters, wall
 
     res, llr_dev, launches, n_msa, n_fb, wall = run_trial()
@@ -1108,9 +1185,9 @@ def main() -> int:
         if getattr(res0, name) != getattr(res, name):
             raise AssertionError(f"{name} differs between the device MSA and the host-aligner flow")
 
-    # ---- 7. the merge kernels against their twins ----------------------------
+    # ---- 7. the merge kernel against its twin --------------------------------
     nb, C7, Cmax = 8, 512, Lmax + device_msa.COLUMN_SLACK
-    merge_err, merge_lines, merge_stats = 0, [], {}
+    merge_err, merge_stats = 0, {}
     for k, margs, _ in _merge_waves(np.random.default_rng(8), dev, nb, C7, Lmax):
         if k in (0, nb - 2):
             _, _, _, mA, mB, wA, wB, _, _ = margs
@@ -1123,40 +1200,16 @@ def main() -> int:
             merge_err = max(merge_err, err)
             ms = _cuda_ms(lambda: mea_cuda.merge_walk(*margs), 20)
             plain = _cuda_ms(lambda: mea_cuda.merge_walk_ref(*margs), 2)
-            composite = _cuda_ms(
-                lambda: mea_cuda.mea_walk(mea_cuda._build_post(*margs[:5], Cmax, Lmax), wA, wB, Cmax), 5)
             nA, nB = mA.sum(1).tolist(), mB.sum(1).tolist()
             bound, by = roofline.merge_bound_ms(nA, nB, wA.tolist(), wB.tolist(), Cmax, clock_mhz)
-            merge_lines.append(
+            print(
                 f"[7] merge_dp vs twin, wave {k + 1} of {nb - 1}: {C7} clusters of {nb} reads, "
                 f"{sum(nA) / C7:.2f} x {sum(nB) / C7:.2f} reads a side, mean widths {wA.float().mean().item():.1f} x "
                 f"{wB.float().mean().item():.1f}, Cmax={Cmax}, mean path length "
                 f"{(codes_k != 0).sum(1).float().mean().item():.1f}; codes and positions equal; kernel {ms:.3f} ms, "
-                f"BuildPost into device memory + mea_dp {composite:.3f} ms, twin {plain:.3f} ms per merge; bound "
-                f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f} % reached")
+                f"twin {plain:.3f} ms per merge; bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f} % reached")
             if k == 0:
                 merge_stats = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
-                # mea_dp, the entry for a caller that holds the plane: the same clusters' BuildPost planes
-                plane = mea_cuda._build_post(*margs[:5], Cmax, Lmax)
-                codes_p, pos_p = mea_cuda.mea_walk(plane, wA, wB, Cmax)
-                codes_pr, pos_pr = mea_cuda.mea_walk_ref(plane, wA, wB, Cmax)
-                torch.cuda.synchronize()
-                mea_err = max((codes_p.int() - codes_pr.int()).abs().max().item(),
-                              (pos_p - pos_pr).abs().max().item())
-                if mea_err:
-                    raise AssertionError(f"mea_dp differs from its twin (max abs {mea_err})")
-                if not (torch.equal(codes_p, codes_k) and torch.equal(pos_p, pos_k)):
-                    raise AssertionError("mea_dp on the BuildPost plane and merge_dp give different paths")
-                path_len = (codes_p != 0).sum(1).float().mean().item()
-                mea_ms = _cuda_ms(lambda: mea_cuda.mea_walk(plane, wA, wB, Cmax), 20)
-                mea_plain = _cuda_ms(lambda: mea_cuda.mea_walk_ref(plane, wA, wB, Cmax), 2)
-                mea_bound, mea_by = roofline.mea_bound_ms(wA.tolist(), wB.tolist(), Cmax, clock_mhz)
-                del plane
-    print(f"[7] mea_dp vs twin: {C7} clusters of {nb} reads, first progressive wave, Cmax={Cmax}, "
-          f"mean path length {path_len:.1f}; codes and positions equal, and equal to merge_dp's; kernel "
-          f"{mea_ms:.3f} ms, twin {mea_plain:.3f} ms per merge of {C7} clusters; bound {mea_bound:.4f} ms "
-          f"({mea_by}), {100 * mea_bound / mea_ms:.1f} % reached")
-    print("\n".join(merge_lines))
     del margs
 
     # ---- 8. the same trial through the command line ------------------------
@@ -1241,6 +1294,11 @@ def main() -> int:
     print(f"[15-16] phase 15 {t16 - t15:.2f} s, phase 16 {time.time() - t16:.2f} s; the script so far "
           f"{time.time() - t_main:.2f} s")
 
+    # ---- 17. the batched consistency transform -------------------------------
+    t17 = time.time()
+    _consistency_phase(dev, msa_clusters, smi)
+    print(f"[17] phase 17 {time.time() - t17:.2f} s")
+
     kernels = [
         {"name": "bp_blocked", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/bp_blocked.cu",
          "replaces": "dna_ldpc_tpu/ops/bp_pallas.py:55",
@@ -1251,10 +1309,6 @@ def main() -> int:
          "replaces": "dna_ldpc_tpu/ops/msa/pairhmm_pallas.py:114",
          "launches": launches["pairhmm"], "max_abs_err": max(k2_err, k2_err_big), "ms": k2_ms_big,
          "plain_ms": k2_plain_big, "bound_ms": k2_bound_big, "bound_by": k2_by_big, "library_ms": None},
-        {"name": "mea_dp", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/mea_dp.cu",
-         "replaces": "dna_ldpc_tpu/ops/msa/device_msa.py:212", "launches": launches["mea_dp"],
-         "max_abs_err": float(mea_err), "ms": mea_ms, "plain_ms": mea_plain, "bound_ms": mea_bound,
-         "bound_by": mea_by, "library_ms": None},
         {"name": "merge_dp", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/mea_dp.cu",
          "replaces": "dna_ldpc_tpu/ops/msa/device_msa.py:175", "launches": launches["merge_dp"],
          "max_abs_err": float(merge_err), **merge_stats, "library_ms": None},

@@ -1,15 +1,13 @@
 // The merge of the device MSA's batched profile alignment: BuildPost (the
 // profile-profile posterior), the MEA max-DP over it and the traceback —
-// MUSCLE v5's BuildPost + CalcAlnFlat + TraceBackFlat. The Hopper kernels
-// that replace the XLA program _build_post -> _mea_forward -> _walk of
+// MUSCLE v5's BuildPost + CalcAlnFlat + TraceBackFlat. The Hopper kernel
+// that replaces the XLA program _build_post -> _mea_forward -> _walk of
 // dna_ldpc_tpu/ops/msa/device_msa.py (:175, :212, :257; one-hot matmuls
 // and two scans there, not a Pallas kernel).
 //
-// Two entries, one body. merge_dp reads its operand straight from the
-// per-cluster block matrix of pair posteriors (Pblock, bf16); mea_dp reads
-// a posterior plane that the caller holds in device memory. Everything
-// after the operand — sweep, packed choice plane, walk — is the same code,
-// instantiated over the two operand sources.
+// One entry, merge_dp: it reads its operand straight from the per-cluster
+// block matrix of pair posteriors (Pblock, bf16), sweeps the DP, packs the
+// choice plane and walks it back.
 //
 // What bounds the work on the card: the DP is a chain of wA + wB dependent
 // antidiagonals of ~4 operations per cell, and the operand is |A| x |B|
@@ -34,10 +32,10 @@
 //   __shfl_up_sync. R is a template parameter (1..9, Cmax <= 287), so a
 //   step is one straight block of R cells. Within a step the only chain
 //   is one fmaxf per cell: max(B, X) is known from the previous row.
-// - Columns, not rows, are the strip: both operand sources are contiguous
-//   along j, so a lane's R operands of a row share one or two 32-byte
-//   sectors (f32 plane) or one (bf16 block). Operands do not depend on
-//   the DP, so a lane fetches them for a chunk of steps at once (about
+// - Columns, not rows, are the strip: the operand is contiguous along j,
+//   so a lane's R operands of a row share one 32-byte sector of the bf16
+//   block. Operands do not depend on the DP, so a lane fetches them for a
+//   chunk of steps at once (about
 //   CHUNK_CELLS = 64 cells: 12 steps at R = 5) into registers, the loops
 //   over the members outermost: one memory latency per pair of members
 //   and chunk, with every cell's load in flight together, where a fetch
@@ -56,14 +54,14 @@
 //   conflict-free. Lane 0 walks it back: cell (i, j) is bits 2 (j mod R)
 //   of plane[i + j / R][j / R].
 //
-// Semantics kept bit for bit with the plain twins
-// (ops/msa/mea_cuda.py::mea_walk_ref, merge_walk_ref) and the JAX scans:
-// f32 values, the tie order B >= X >= Y, the boundary codes (i == 0 -> Y,
-// j == 0 -> X, value 0). The twin's NEG cells (j < 0) and code-0 cells lie
-// outside the box and are never reached from inside it. A cell's value is
-// the largest of B, X, Y whichever the tie order picks, so fmaxf gives the
-// twin's value (up to the sign of a zero, which no comparison or sum
-// sees).
+// Semantics kept bit for bit with the plain twin
+// (ops/msa/mea_cuda.py::merge_walk_ref = _build_post + mea_walk_ref) and
+// the JAX scans: f32 values, the tie order B >= X >= Y, the boundary
+// codes (i == 0 -> Y, j == 0 -> X, value 0). The twin's NEG cells (j < 0)
+// and code-0 cells lie outside the box and are never reached from inside
+// it. A cell's value is the largest of B, X, Y whichever the tie order
+// picks, so fmaxf gives the twin's value (up to the sign of a zero, which
+// no comparison or sum sees).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,28 +83,6 @@ template <int R>
 using strip_word = std::conditional_t<(R <= 4), uint8_t, std::conditional_t<(R <= 8), uint16_t, uint32_t>>;
 
 constexpr int word_bytes(int R) { return R <= 4 ? 1 : R <= 8 ? 2 : 4; }
-
-// Operand source of mea_dp: the posterior plane of one cluster.
-struct PlaneSource {
-    const float* pc;  // post[c], [Cmax, Cmax]
-    int Cmax, wa, wb;
-
-    // the operands post[i-1, j-1] of cells (i0 + p, j0 + r), p < CH, r < R; 0 off the box
-    template <int R, int CH>
-    __device__ __forceinline__ void fetch(int i0, int j0, float (&op)[CH][R]) const {
-#pragma unroll
-        for (int p = 0; p < CH; ++p) {
-            const int i = i0 + p;
-            const bool row = i >= 1 && i <= wa;
-            const float* q = pc + (size_t)(row ? i - 1 : 0) * Cmax + j0 - 1;
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-                const int j = j0 + r;
-                op[p][r] = (row && j >= 1 && j <= wb) ? __ldg(q + r) : 0.0f;
-            }
-        }
-    }
-};
 
 // Operand source of merge_dp: BuildPost from the cluster's block matrix.
 // rowtab[s][i] is the row of Pblock that sequence s of A contributes to
@@ -160,8 +136,8 @@ struct BlockSource {
 
 // The box sweep and the walk of one cluster by one warp (file comment).
 // plane: (wa + 32) x 32 words of shared memory at least.
-template <int R, class Source>
-__device__ void sweep_and_walk(const Source& src, int wa, int wb, void* plane_raw,
+template <int R>
+__device__ void sweep_and_walk(const BlockSource& src, int wa, int wb, void* plane_raw,
                                uint8_t* codes, int32_t* pos)
 {
     using word = strip_word<R>;
@@ -181,7 +157,7 @@ __device__ void sweep_and_walk(const Source& src, int wa, int wb, void* plane_ra
     constexpr int CH = chunk_steps(R);
     for (int t0 = 0; t0 < steps; t0 += CH) {
         float op[CH][R];
-        if (owner) src.template fetch<R, CH>(t0 - lane, j0, op);
+        if (owner) src.fetch<R, CH>(t0 - lane, j0, op);
 #pragma unroll
         for (int p = 0; p < CH; ++p) {
             const int t = t0 + p, i = t - lane;
@@ -242,8 +218,7 @@ __device__ void sweep_and_walk(const Source& src, int wa, int wb, void* plane_ra
     }
 }
 
-template <class Source>
-__device__ __forceinline__ void sweep_by_strip(const Source& src, int wa, int wb, void* plane,
+__device__ __forceinline__ void sweep_by_strip(const BlockSource& src, int wa, int wb, void* plane,
                                                uint8_t* codes, int32_t* pos)
 {
     static_assert(RMAX == 9, "one case per strip width");
@@ -271,19 +246,6 @@ __device__ __forceinline__ void cluster_setup(const int32_t* wA, const int32_t* 
         codes_c[k] = 0;
         pos_c[k] = 0;
     }
-}
-
-__global__ void __launch_bounds__(32) mea_dp_kernel(
-    const float* __restrict__ post, const int32_t* __restrict__ wA, const int32_t* __restrict__ wB,
-    uint8_t* __restrict__ codes, int32_t* __restrict__ pos, int Cmax)
-{
-    extern __shared__ __align__(16) unsigned char smem[];
-    uint8_t* codes_c = codes + (size_t)blockIdx.x * 2 * Cmax;
-    int32_t* pos_c = pos + (size_t)blockIdx.x * 2 * Cmax;
-    int wa, wb;
-    cluster_setup(wA, wB, codes_c, pos_c, Cmax, wa, wb);
-    const PlaneSource src{post + (size_t)blockIdx.x * Cmax * Cmax, Cmax, wa, wb};
-    sweep_by_strip(src, wa, wb, smem, codes_c, pos_c);
 }
 
 __global__ void __launch_bounds__(32) merge_dp_kernel(
@@ -326,8 +288,8 @@ __global__ void __launch_bounds__(32) merge_dp_kernel(
 }
 
 // Shared memory of one cluster's warp: the packed plane, (Cmax + 32) steps
-// x 32 lanes of the widest strip's word, and for merge_dp two uint16 index
-// tables of nb x 32 strips entries. -1: Cmax is beyond the kernel.
+// x 32 lanes of the widest strip's word (two uint16 index tables of nb x 32
+// strips entries follow it). -1: Cmax is beyond the kernel.
 int plane_bytes_of(int Cmax)
 {
     const int R = Cmax / 32 + 1;
@@ -343,19 +305,6 @@ cudaError_t allow_smem(Kernel kernel, size_t smem)
 }
 
 }  // namespace
-
-extern "C" int mea_dp_launch(const void* post, const void* wA, const void* wB, void* codes,
-                             void* pos, int C, int Cmax, void* stream)
-{
-    if (C == 0) return 0;
-    const int plane_bytes = plane_bytes_of(Cmax);
-    if (plane_bytes < 0) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = allow_smem(mea_dp_kernel, plane_bytes);
-    if (e != cudaSuccess) return (int)e;
-    mea_dp_kernel<<<C, 32, plane_bytes, (cudaStream_t)stream>>>(
-        (const float*)post, (const int32_t*)wA, (const int32_t*)wB, (uint8_t*)codes, (int32_t*)pos, Cmax);
-    return (int)cudaGetLastError();
-}
 
 extern "C" int merge_dp_launch(const void* Pblock, const void* cposA, const void* cposB, const void* mA,
                                const void* mB, const void* wA, const void* wB, void* codes, void* pos,

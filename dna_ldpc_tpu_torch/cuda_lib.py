@@ -91,8 +91,6 @@ def load() -> ctypes.CDLL:
             lib.bp_blocked_launch.restype = ci
             lib.pairhmm_launch.argtypes = [vp] * 9 + [ci, ci, ctypes.c_longlong, vp]
             lib.pairhmm_launch.restype = ci
-            lib.mea_dp_launch.argtypes = [vp] * 5 + [ci, ci, vp]
-            lib.mea_dp_launch.restype = ci
             lib.merge_dp_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
             lib.merge_dp_launch.restype = ci
             lib.dna_cuda_error_string.argtypes = [ci]

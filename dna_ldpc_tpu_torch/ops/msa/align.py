@@ -31,6 +31,7 @@ aligner interface of ``pipeline.llr``.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -289,19 +290,23 @@ def _ea_dists(seqs: list[str], ea: np.ndarray) -> np.ndarray:
     return dist
 
 
-def _refine_masks(n: int, refine_iters: int, seed: int) -> np.ndarray:
-    """Refinement bipartitions (rand()%2 -> seeded numpy draws), all-same
-    rows removed; the same stream as the JAX package's align()."""
-    if n < 3 or not refine_iters:
+@functools.lru_cache(maxsize=None)
+def refine_mask_table(n: int, refine_iters: int = REFINE_ITERS, seed: int = 0) -> np.ndarray:
+    """The bipartition mask sequence a cluster of n sequences consumes
+    (``device_msa.refine_mask_table`` in both packages): rand()%2 ->
+    seeded numpy draws, all-same rows removed; the same stream as the JAX
+    package's align(). Returns [n_valid, n] uint8, shared by every caller
+    (cached): read it, never write it."""
+    if n < 3 or refine_iters <= 0:
         return np.zeros((0, n), np.uint8)
     masks = np.random.default_rng(seed).integers(0, 2, (refine_iters, n)).astype(np.uint8)
     keep = ~((masks.all(axis=1)) | (~masks.any(axis=1)))
     return masks[keep]
 
 
-def _consistency_host(posts: list[np.ndarray], n: int, iters: int) -> list[np.ndarray]:
-    """One cluster's consistency transform on the CPU (align() without
-    precomputed transformed posteriors)."""
+def _consistency_cpu(posts: list[np.ndarray], n: int, iters: int) -> list[np.ndarray]:
+    """One cluster's consistency transform as one batched product on the
+    CPU (align() without precomputed transformed posteriors)."""
     L = max(max(p.shape) for p in posts)
     stacked = np.zeros((1, len(posts), L, L), np.float32)
     for k, p in enumerate(posts):
@@ -465,10 +470,10 @@ def align(
         pair_dists = _ea_dists(seqs, np.array([mea_score(p, use_native) for p in pair_posts], np.float32))
     t0 = _tick(timings, "ea", t0)
     if n >= 3 and consistency_iters:
-        pair_posts = _consistency_host(pair_posts, n, consistency_iters)
+        pair_posts = _consistency_cpu(pair_posts, n, consistency_iters)
     t0 = _tick(timings, "consistency", t0)
     joins = permute_join_order(upgma_join_order(pair_dists), tree_perm)
-    masks = _refine_masks(n, refine_iters, seed)
+    masks = refine_mask_table(n, refine_iters, seed)
     if not use_native:
         out = _progressive_refine_numpy(seqs, joins, dict(zip(pairs, pair_posts)), masks)
     else:

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from . import pairhmm
-from .align import CONVERGE_AFTER, _refine_masks
+from .align import CONVERGE_AFTER, refine_mask_table
 from .consistency import consistency_core
 from .mea_cuda import CB, CX, CY, merge_walk
 
@@ -313,7 +313,7 @@ def start_msa_batch(
 
     # refinement: per-cluster mask tables by true n (clusters with n < 3
     # skip refinement entirely -> all-false rows)
-    tables = {n: _refine_masks(n, refine_iters, seed) for n in {len(s) for s in seqs_list}}
+    tables = {n: refine_mask_table(n, refine_iters, seed) for n in {len(s) for s in seqs_list}}
     max_rows = max((t.shape[0] for t in tables.values()), default=0)
     if max_rows:
         rA = np.zeros((max_rows, C_cap, nb), bool)

@@ -1,22 +1,18 @@
 """The merge of the device MSA — BuildPost, the MEA max-DP and its
-traceback — as hand-written CUDA kernels, and their plain torch twins.
+traceback — as one hand-written CUDA kernel, and its plain torch twin.
 
-Two entries share one kernel body (``csrc/mea_dp.cu``):
+``merge_walk`` (kernel ``merge_dp``, ``csrc/mea_dp.cu``) takes the
+per-cluster block matrix of pair posteriors and the two projected operands
+and returns the MEA path of each cluster's merge. It replaces the XLA
+program ``_build_post`` -> ``_mea_forward`` -> ``_walk`` of
+``dna_ldpc_tpu/ops/msa/device_msa.py`` (:175, :212, :257; one-hot matmuls
+and two scans in the JAX package, not a Pallas kernel). The kernel reads
+its operand straight from ``Pblock``, so neither the profile-profile
+posterior ``post [C, Cmax, Cmax]`` nor BuildPost's first sum
+``T [C, Cmax, nb (L + 1)]`` exists in device memory.
 
-- ``merge_walk`` (kernel ``merge_dp``) takes the per-cluster block matrix
-  of pair posteriors and the two projected operands and returns the MEA
-  path of each cluster's merge. It replaces the XLA program ``_build_post``
-  -> ``_mea_forward`` -> ``_walk`` of ``dna_ldpc_tpu/ops/msa/device_msa.py``
-  (:175, :212, :257; one-hot matmuls and two scans in the JAX package, not
-  a Pallas kernel). The kernel reads its operand straight from ``Pblock``,
-  so neither the profile-profile posterior ``post [C, Cmax, Cmax]`` nor
-  BuildPost's first sum ``T [C, Cmax, nb (L + 1)]`` exists in device
-  memory.
-- ``mea_walk`` (kernel ``mea_dp``) is the same DP and walk for a caller
-  that holds the posterior plane already.
-
-On CUDA tensors each launches its kernel or raises; on CPU tensors it runs
-its twin (``merge_walk_ref`` = ``_build_post`` + ``mea_walk_ref``, the
+On CUDA tensors it launches the kernel or raises; on CPU tensors it runs
+the twin (``merge_walk_ref`` = ``_build_post`` + ``mea_walk_ref``, the
 eager gathers and scans).
 
 BuildPost, per cell (x, y) of the operands' (wA x wB) box::
@@ -51,8 +47,7 @@ import torch
 CB, CX, CY = 1, 2, 3          # path step codes ('B', 'X', 'Y'); 0 = none
 NEG = float(np.float32(-3.0e38))
 
-launches = 0        # mea_dp launches since the last reset (main-path evidence)
-merge_launches = 0  # merge_dp launches since the last reset
+merge_launches = 0  # merge_dp launches since the last reset (main-path evidence)
 
 # the kernel's lanes hold strips of up to MAX_STRIP columns of the box
 MAX_STRIP = 9
@@ -85,10 +80,11 @@ def _build_post(Pblock, cposA, cposB, mA, mB, Cmax: int, L: int):
 
 
 def mea_walk_ref(post, wA, wB, Cmax: int):
-    """Plain torch twin of ``mea_dp``. post: [C, Cmax, Cmax] f32 (cell
-    (i, j) reads post[i-1, j-1]); wA, wB: [C] operand widths. Returns
-    (codes [C, 2 Cmax] uint8, pos [C, 2 Cmax] int32) indexed by diagonal
-    d - 1, on the inputs' device."""
+    """The MEA max-DP and walk of ``merge_dp``'s twin, from the posterior
+    plane. post: [C, Cmax, Cmax] f32 (cell (i, j) reads post[i-1, j-1]);
+    wA, wB: [C] operand widths. Returns (codes [C, 2 Cmax] uint8,
+    pos [C, 2 Cmax] int32) indexed by diagonal d - 1, on the inputs'
+    device."""
     dev = post.device
     C, W, D = post.shape[0], Cmax + 1, 2 * Cmax
     f32 = torch.float32
@@ -160,43 +156,6 @@ def _one_device(*tensors) -> torch.device:
     return dev
 
 
-def _launch(entry: str, C: int, dims: tuple, Cmax: int, dev, args) -> tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the outputs and launch ``entry`` of the kernel library on
-    ``dev``'s current stream: ``entry(*args, codes, pos, C, *dims, Cmax,
-    stream)``."""
-    from ... import cuda_lib
-
-    if Cmax > MAX_CMAX:
-        raise ValueError(f"Cmax={Cmax} exceeds the kernel's {MAX_STRIP} columns per lane (Cmax <= {MAX_CMAX})")
-    codes = torch.empty((C, 2 * Cmax), dtype=torch.uint8, device=dev)
-    pos = torch.empty((C, 2 * Cmax), dtype=torch.int32, device=dev)
-    if C:
-        with torch.cuda.device(dev):
-            status = getattr(cuda_lib.load(), entry)(
-                *(a.data_ptr() for a in args), codes.data_ptr(), pos.data_ptr(), C, *dims, Cmax,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        cuda_lib.check(status, entry)
-    return codes, pos
-
-
-def mea_walk(post, wA, wB, Cmax: int):
-    """MEA path of each cluster's merge from its posterior plane: the
-    ``mea_dp`` kernel on CUDA tensors, the plain twin on CPU tensors
-    (module docstring)."""
-    global launches
-    C = post.shape[0]
-    if post.shape != (C, Cmax, Cmax) or wA.shape != (C,) or wB.shape != (C,):
-        raise ValueError("post must be [C, Cmax, Cmax] and wA, wB [C]")
-    dev = _one_device(post, wA, wB)
-    if dev.type == "cpu":
-        return mea_walk_ref(post, wA, wB, Cmax)
-    args = (post.to(torch.float32).contiguous(), wA.to(torch.int32).contiguous(), wB.to(torch.int32).contiguous())
-    out = _launch("mea_dp_launch", C, (), Cmax, dev, args)
-    launches += bool(C)
-    return out
-
-
 def merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
     """MEA path of each cluster's merge of the profiles A and B, straight
     from the pair posteriors: the ``merge_dp`` kernel on CUDA tensors, the
@@ -206,7 +165,7 @@ def merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
     cposA, cposB: [C, nb, Cmax+1] int32 projected column maps (gap = L);
     mA, mB: [C, nb] bool membership; wA, wB: [C] int32 operand widths.
     Returns (codes [C, 2 Cmax] uint8, pos [C, 2 Cmax] int32) indexed by
-    diagonal d - 1, as ``mea_walk`` does."""
+    diagonal d - 1."""
     global merge_launches
     C, nb = mA.shape
     K = nb * (L + 1)
@@ -221,8 +180,20 @@ def merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
         return merge_walk_ref(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L)
     if nb > 32 or K > 65535:
         raise ValueError(f"nb={nb}, L={L}: the kernel takes at most 32 sequences and 65535 rows of Pblock")
+    if Cmax > MAX_CMAX:
+        raise ValueError(f"Cmax={Cmax} exceeds the kernel's {MAX_STRIP} columns per lane (Cmax <= {MAX_CMAX})")
+    from ... import cuda_lib
+
     args = (Pblock.contiguous(), cposA.to(torch.int32).contiguous(), cposB.to(torch.int32).contiguous(),
             mA.contiguous(), mB.contiguous(), wA.to(torch.int32).contiguous(), wB.to(torch.int32).contiguous())
-    out = _launch("merge_dp_launch", C, (nb, L), Cmax, dev, args)
-    merge_launches += bool(C)
-    return out
+    codes = torch.empty((C, 2 * Cmax), dtype=torch.uint8, device=dev)
+    pos = torch.empty((C, 2 * Cmax), dtype=torch.int32, device=dev)
+    if C:
+        with torch.cuda.device(dev):
+            status = cuda_lib.load().merge_dp_launch(
+                *(a.data_ptr() for a in args), codes.data_ptr(), pos.data_ptr(), C, nb, L, Cmax,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        cuda_lib.check(status, "merge_dp_launch")
+        merge_launches += 1
+    return codes, pos

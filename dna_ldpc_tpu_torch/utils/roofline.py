@@ -25,14 +25,12 @@ and ~8):
 - K2, per cell of a pair's (lx + 1) x (ly + 1) box: forward 13 ``expf`` +
   5 ``logf``, backward 14 ``expf`` + 5 ``logf`` = 37 special-function
   operations and ~440 f32 operations.
-- ``mea_dp``, per cell of a cluster's (wA + 1) x (wB + 1) box: one add,
-  two compares and the choice code, ~4 operations; the wA x wB box of its
-  f32 plane in is what binds it (the rest of the plane cannot reach the
-  output).
-- ``merge_dp`` (BuildPost + the same DP), per cell of the box: |A| |B|
-  adds, |B| roundings to bf16 and the DP's ~4; its bytes are the wA x wB
-  entries that the column maps address in each of the |A| x |B| blocks of
-  ``Pblock`` that the masks select, each read once.
+- ``merge_dp`` (BuildPost + the MEA DP), per cell of a cluster's
+  (wA + 1) x (wB + 1) box: |A| |B| adds, |B| roundings to bf16 and the
+  DP's one add, two compares and the choice code (~4); its bytes are the
+  wA x wB entries that the column maps address in each of the |A| x |B|
+  blocks of ``Pblock`` that the masks select, each read once (no entry
+  outside the box can reach the output).
 """
 
 from __future__ import annotations
@@ -77,18 +75,6 @@ def k2_bound_ms(lx, ly, Lmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
     cells = sum((int(a) + 1) * (int(b) + 1) for a, b in zip(lx, ly) if int(a) and int(b))
     n_bytes = P * (2 * Lmax + 8 + 4 * Lmax * Lmax + 4)
     return bound_ms(n_bytes, K2_F32_PER_CELL * cells, K2_MUFU_PER_CELL * cells, sm_clock_mhz)
-
-
-def mea_bound_ms(wA, wB, Cmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
-    """``mea_dp`` on clusters whose operands are ``wA``, ``wB`` columns wide
-    (one entry per cluster). Bytes in: the wA x wB box of the f32 plane —
-    the walk starts at (wA, wB) and moves to smaller i and j only, so no
-    entry outside the box can reach the output — and the two widths; bytes
-    out: a code (one byte) and a position (int32) per diagonal, 2 Cmax of
-    them."""
-    box = sum(int(x) * int(y) for x, y in zip(wA, wB))
-    cells = sum((int(x) + 1) * (int(y) + 1) for x, y in zip(wA, wB))
-    return bound_ms(4 * box + len(wA) * (8 + 2 * Cmax * 5), MEA_F32_PER_CELL * cells, 0.0, sm_clock_mhz)
 
 
 def merge_bound_ms(nA, nB, wA, wB, Cmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):

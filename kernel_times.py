@@ -18,12 +18,10 @@ K1 on 64 trial-like codewords (200 iterations), on a 1024-frame AWGN batch
 at 4.25 dB (50 iterations, early stop and fixed work) and on its first 32
 frames (and that run's bound, ``utils/roofline.py``); K2 on 512 pairs at
 Lmax = 160 and on one launch of the trial's size;
-the merge (BuildPost + MEA DP + walk: ``mea_cuda.merge_walk`` where the
-checkout has it, else ``_build_post`` into device memory followed by
-``mea_walk``) on 512 clusters of 8 reads at the first and the last
-progressive wave and on 64 clusters of 32 reads at a refinement
-bipartition of 16 reads a side (with its bound, as the others' in
-``chip_smoke.py``); ``mea_dp`` alone on the first wave's planes. Then
+the merge (BuildPost + MEA DP + walk: ``mea_cuda.merge_walk``) on 512
+clusters of 8 reads at the first and the last progressive wave and on 64
+clusters of 32 reads at a refinement bipartition of 16 reads a side (with
+its bound, as the others' in ``chip_smoke.py``). Then
 ``chip_smoke.py``'s phase-5 trial: one warm-up ``decode_trial``, then the
 device MSA and the ``DNA_LDPC_DEVICE_MSA=0`` flow twice in turns, each
 wall on the host clock ending in a synchronize.
@@ -103,28 +101,21 @@ def trial_walls() -> dict:
 
 
 def merge_times(dev) -> dict:
-    """Milliseconds per batched merge of the checkout on the path (module
-    docstring), of ``mea_dp`` alone and of a whole ``_merge_step`` (the two
-    projections, the merge, the gap insertion), with the number of device
-    kernels one ``_merge_step`` launches (``torch.profiler``)."""
+    """Milliseconds per batched merge (module docstring) and per whole
+    ``_merge_step`` (the two projections, the merge, the gap insertion),
+    with the number of device kernels one ``_merge_step`` launches
+    (``torch.profiler``)."""
     import numpy as np
     import torch
 
     from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda
     from dna_ldpc_tpu_torch.utils import roofline
 
-    # BuildPost lives beside the merge kernels where the checkout has ``merge_walk``
-    build_post = getattr(mea_cuda, "_build_post", None) or device_msa._build_post
-
-    def composite(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L):
-        return mea_cuda.mea_walk(build_post(Pblock, cposA, cposB, mA, mB, Cmax, L), wA, wB, Cmax)
-
-    merge = getattr(mea_cuda, "merge_walk", composite)
-    out = {"merge_is": "merge_dp" if merge is not composite else "_build_post + mea_dp"}
+    out = {}
     k2 = _k2_posteriors()
     for k, margs, step in _merge_waves(np.random.default_rng(8), dev, 8, 512, 160, posteriors=k2):
         if k in (0, 6):
-            out[f"merge_512x8_wave{k + 1}"] = _cuda_ms(lambda: merge(*margs), 10)
+            out[f"merge_512x8_wave{k + 1}"] = _cuda_ms(lambda: mea_cuda.merge_walk(*margs), 10)
             out[f"merge_step_512x8_wave{k + 1}"] = _cuda_ms(lambda: device_msa._merge_step(*step), 10)
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 device_msa._merge_step(*step)
@@ -135,16 +126,11 @@ def merge_times(dev) -> dict:
             out[f"merge_step_dp_kernel_device_ms_wave{k + 1}"] = sum(
                 e.device_time_total for e in events if "_dp_kernel" in e.key) / 1e3
             out[f"merge_step_device_ms_wave{k + 1}"] = sum(e.device_time_total for e in events) / 1e3
-        if k == 0:
-            Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L = margs
-            plane = build_post(Pblock, cposA, cposB, mA, mB, Cmax, L)
-            out["mea_dp_512_Cmax192"] = _cuda_ms(lambda: mea_cuda.mea_walk(plane, wA, wB, Cmax), 20)
-            del plane
     del margs, step
     # a refinement bipartition of aligned clusters of 32 reads, 16 a side: 256 loads per cell
     for k, margs, _ in _merge_waves(np.random.default_rng(9), dev, 32, 64, 160, consistency_iters=0, posteriors=k2):
         if k == 31:
-            out["merge_64x32_refine16x16"] = _cuda_ms(lambda: merge(*margs), 5)
+            out["merge_64x32_refine16x16"] = _cuda_ms(lambda: mea_cuda.merge_walk(*margs), 5)
             _, _, _, mA, mB, wA, wB, Cmax, _ = margs
             out["merge_64x32_refine16x16_bound"] = roofline.merge_bound_ms(
                 mA.sum(1).tolist(), mB.sum(1).tolist(), wA.tolist(), wB.tolist(), Cmax)

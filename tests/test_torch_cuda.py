@@ -10,8 +10,8 @@ Without a CUDA device every test skips. Tolerances: K1 is bit-equal to
 its twin (same rounding points, same summation order, the same libdevice
 tanh/log); K2's posteriors agree within atol = rtol = 1e-4 and its EA
 score equals the native ``mea_score`` of its own bf16-rounded posterior;
-the MEA-DP kernel's codes and positions are bit-equal to its twin's (one
-f32 add per cell, exact compares); edit distances are integers
+the merge kernel's codes and positions are bit-equal to its twin's (the
+same f32 sums in the same order, exact compares); edit distances are integers
 (bit-equal); the device MSA, ``align()`` and the k-mer clusterer give the
 CPU's rows and assignments; the general-table pair-HMM (plain torch)
 agrees with the CPU within atol = rtol = 1e-4, and ``batch_posteriors``
@@ -33,7 +33,7 @@ from dna_ldpc_tpu_torch.ops.msa.align import (
     _ea_dists, align, align_clusters, cluster_pairs, mea_score, upgma_join_order,
 )
 from dna_ldpc_tpu_torch.ops.msa.ensemble import perturb_params
-from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_core
+from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_clusters, consistency_core
 from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
 from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
 from dna_ldpc_tpu_torch.utils.dna import seqs_to_matrix
@@ -287,25 +287,28 @@ def test_consistency_and_align_clusters_on_device(dev, monkeypatch):
     assert align_clusters(clusters, refine_iters=10, device=dev) == want
 
 
-@pytest.mark.parametrize("Cmax,kind", [(24, "quantised"), (192, "random"), (192, "quantised"), (286, "random")])
-def test_mea_kernel_matches_twin(dev, Cmax, kind):
-    """Random and few-valued (exact-tie) planes, widths 0 and Cmax included;
-    Cmax = 286 is the largest the device MSA makes (nine columns a lane)."""
-    rng = np.random.default_rng(Cmax)
-    C = 48
-    post = rng.random((C, Cmax, Cmax)).astype(np.float32)
-    if kind == "quantised":
-        post = (rng.integers(0, 3, (C, Cmax, Cmax)) * 0.5).astype(np.float32)
-    wA = rng.integers(0, Cmax + 1, C).astype(np.int32)
-    wB = rng.integers(0, Cmax + 1, C).astype(np.int32)
-    wA[:3], wB[:3] = (0, Cmax, Cmax), (Cmax, 0, Cmax)
-    args = [torch.from_numpy(a).to(dev) for a in (post, wA, wB)]
-    before = mea_cuda.launches
-    codes, pos = mea_cuda.mea_walk(*args, Cmax)
-    codes_r, pos_r = mea_cuda.mea_walk_ref(*args, Cmax)
-    torch.cuda.synchronize()
-    assert mea_cuda.launches == before + 1
-    assert torch.equal(codes, codes_r) and torch.equal(pos, pos_r)
+@pytest.mark.parametrize("min_device_clusters", [1, 4])
+def test_consistency_clusters_on_device(dev, min_device_clusters):
+    """``consistency_clusters`` on the card against ``device="cpu"``
+    (atol 2e-5, rtol 1e-4): a cluster of 2 passes through, and with the
+    default ``min_device_clusters`` the lone clusters of 3 and 5 take the
+    host loop (then bit-equal) while the four clusters of 4 are batched."""
+    rng = np.random.default_rng(17)
+    cluster_posts = []
+    for n in (2, 3, 5, 4, 4, 4, 4):
+        seqs = _copies(rng, n, length=60)
+        pairs = cluster_pairs(n)
+        cluster_posts.append(pairhmm.batch_posteriors([seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs],
+                                                      device="cpu"))
+    got = consistency_clusters(cluster_posts, min_device_clusters=min_device_clusters, device=dev)
+    want = consistency_clusters(cluster_posts, min_device_clusters=min_device_clusters, device="cpu")
+    for c, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g, w):
+            assert a.shape == b.shape
+            if c < 3 and min_device_clusters == 4:
+                np.testing.assert_array_equal(a, b)
+            else:
+                np.testing.assert_allclose(a, b, atol=2e-5, rtol=1e-4)
 
 
 def _merge_case(dev, nb, Cmax, C=6, seed=0):
@@ -364,11 +367,11 @@ def test_merge_kernel_matches_twin(dev, nb, Cmax):
     args = _merge_case(dev, nb, Cmax)
     wA, wB = args[5], args[6]
     assert int(wA[1]) == 0 and int(wB[2]) == 0 and int(wA[-1]) == int(wB[-1]) == 0
-    before = mea_cuda.merge_launches, mea_cuda.launches
+    before = mea_cuda.merge_launches
     codes, pos = mea_cuda.merge_walk(*args)
     codes_r, pos_r = mea_cuda.merge_walk_ref(*args)
     torch.cuda.synchronize()
-    assert (mea_cuda.merge_launches, mea_cuda.launches) == (before[0] + 1, before[1])
+    assert mea_cuda.merge_launches == before + 1
     assert torch.equal(codes, codes_r) and torch.equal(pos, pos_r)
     if Cmax >= 192:
         assert int((codes[0] != 0).sum()) > Cmax  # the overflowing cluster
@@ -379,9 +382,14 @@ def test_merge_kernel_refuses_what_it_cannot_take(dev):
     args = list(_merge_case(dev, 2, 64))
     with pytest.raises(ValueError, match="several devices"):
         mea_cuda.merge_walk(args[0].cpu(), *args[1:])
-    wide = torch.zeros((1, 300, 300), device=dev)
+    # Cmax = 300 needs ten columns a lane (L = 268: nb (L + 1) = 538 rows of Pblock)
+    nb, L, Cmax = 2, 268, 300
+    cpos = torch.zeros((1, nb, Cmax + 1), dtype=torch.int32, device=dev)
+    mask = torch.ones((1, nb), dtype=torch.bool, device=dev)
+    widths = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="Cmax=300"):
-        mea_cuda.mea_walk(wide, torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev), 300)
+        mea_cuda.merge_walk(torch.zeros((1, nb * (L + 1), nb * (L + 1)), dtype=torch.bfloat16, device=dev),
+                            cpos, cpos, mask, mask, widths, widths, Cmax, L)
 
 
 def test_run_msa_batch_on_device(dev):

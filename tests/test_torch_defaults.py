@@ -16,6 +16,7 @@ from dna_ldpc_tpu_torch.ops import bp, cluster, product, scldpc, simulation
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
 from dna_ldpc_tpu_torch.ops.msa import msa_aligner
 from dna_ldpc_tpu_torch.ops.msa.align import align, align_clusters
+from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_clusters
 from dna_ldpc_tpu_torch.ops.msa.ensemble import ensemble_align, perturb_params
 from dna_ldpc_tpu_torch.ops.msa.pairhmm import batch_post_ea, batch_posteriors
 from dna_ldpc_tpu_torch.pipeline import decode, llr
@@ -80,6 +81,13 @@ def _batch_posteriors_k2(**kw):
 def _batch_posteriors_general(**kw):
     (post,) = batch_posteriors(READS[:1], READS[1:2], params=perturb_params(1), **kw)
     assert post.shape == (16, 15) and post.max() > 0.5
+
+
+def _consistency_clusters(**kw):
+    rng = np.random.default_rng(0)
+    posts = [[rng.random((12, 11), dtype=np.float32) for _ in range(3)] for _ in range(4)]  # four clusters of 3
+    out = consistency_clusters(posts, **kw)
+    assert [len(c) for c in out] == [3] * 4 and out[0][0].shape == (12, 11)
 
 
 def _ensemble_align(**kw):
@@ -177,7 +185,7 @@ SC_ENTRY_POINTS = [
 ENTRY_POINTS = [
     _trial_config, _sim_config, _compute_trial_llrs, _process_mixed_clusters, _decode_llrs, _align_clusters,
     _batch_post_ea, _edit_distance, _product_decode, _per_cluster_llrs, _align, _msa_aligner, _batch_posteriors_k2,
-    _batch_posteriors_general, _ensemble_align, _kmer_cluster, _super_align, _host_count_llrs,
+    _batch_posteriors_general, _ensemble_align, _kmer_cluster, _super_align, _host_count_llrs, _consistency_clusters,
 ] + SC_ENTRY_POINTS
 
 

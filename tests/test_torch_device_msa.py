@@ -2,9 +2,9 @@
 ``_align_clusters_device`` against the JAX package's on the same seeded
 numpy inputs.
 
-- ``mea_walk_ref`` (the twin of the ``mea_dp`` kernel) equals JAX
-  ``_mea_forward`` + ``_walk`` bit for bit, on random posteriors and on
-  posteriors quantised to a few values (exact ties);
+- ``mea_walk_ref`` (the DP and walk of the ``merge_dp`` kernel's twin)
+  equals JAX ``_mea_forward`` + ``_walk`` bit for bit, on random
+  posteriors and on posteriors quantised to a few values (exact ties);
 - ``build_pblock`` is bit-equal; ``_build_post`` within 1e-6 relative (the
   same bf16 values summed in f32, in another order);
 - ``assemble_transform`` within one bf16 ulp (the consistency products
@@ -75,9 +75,7 @@ def test_mea_walk_ref_matches_jax(kind):
     wA[:3], wB[:3] = (0, Cmax, 5), (7, 0, Cmax)
     cd = j_dm._mea_forward(jnp.asarray(post), Cmax)
     want_codes, want_pos = (np.asarray(a) for a in j_dm._walk(cd, jnp.asarray(wA), jnp.asarray(wB), Cmax))
-    before = mea_cuda.launches
-    codes, pos = mea_cuda.mea_walk(torch.from_numpy(post), torch.from_numpy(wA), torch.from_numpy(wB), Cmax)
-    assert mea_cuda.launches == before  # CPU tensors: the twin ran
+    codes, pos = mea_cuda.mea_walk_ref(torch.from_numpy(post), torch.from_numpy(wA), torch.from_numpy(wB), Cmax)
     np.testing.assert_array_equal(codes.numpy(), want_codes)
     np.testing.assert_array_equal(pos.numpy(), want_pos)
     assert codes.dtype == torch.uint8 and pos.dtype == torch.int32
@@ -194,9 +192,9 @@ def test_align_clusters_device_matches_jax(monkeypatch):
     clusters = _random_clusters(seed=5, count=8, nmax=7, base_len=48)
     want = j_align_clusters_device(clusters, 100, 2, 0, 64, None, {})
     timings = {}
-    before = mea_cuda.launches
+    before = mea_cuda.merge_launches
     got = t_align.align_clusters(clusters, device="cpu", timings=timings)
-    assert mea_cuda.launches == before
+    assert mea_cuda.merge_launches == before
     assert got == want
     assert got == [t_align.align(cl, device="cpu") for cl in clusters]
     assert set(timings) == {"pairhmm", "consistency", "msa_device", "msa_collect"}

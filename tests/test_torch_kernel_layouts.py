@@ -263,8 +263,10 @@ def test_roofline_k2_counts_the_boxes_and_mea_the_plane():
     assert by == "bytes" and empty == pytest.approx(1e3 * 2 * (320 + 8 + 4 * 160 * 160 + 4) / 3.35e12, rel=1e-12)
     both, _ = roofline.k2_bound_ms([150, 0], [147, 5], 160)
     assert both == one
-    # mea_dp: of the plane only the wA x wB box can reach the path
-    mea, by = roofline.mea_bound_ms([136] * 512, [135] * 512, 192)
-    assert by == "bytes" and mea == pytest.approx(1e3 * 512 * (4 * 136 * 135 + 8 + 1920) / 3.35e12, rel=1e-12)
-    assert mea < roofline.mea_bound_ms([192] * 512, [192] * 512, 192)[0]
-    assert roofline.mea_bound_ms([0], [0], 192)[0] == pytest.approx(1e3 * (8 + 1920) / 3.35e12, rel=1e-12)
+    # merge_dp at one read a side: of the block only the wA x wB box can reach the path
+    one_a_side = ([1] * 512, [1] * 512)
+    merge, by = roofline.merge_bound_ms(*one_a_side, [136] * 512, [135] * 512, 192)
+    assert by == "bytes" and merge == pytest.approx(
+        1e3 * 512 * (2 * 136 * 135 + 4 * (136 + 135) + 2 + 8 + 1920) / 3.35e12, rel=1e-12)
+    assert merge < roofline.merge_bound_ms(*one_a_side, [192] * 512, [192] * 512, 192)[0]
+    assert roofline.merge_bound_ms([1], [1], [0], [0], 192)[0] == pytest.approx(1e3 * (2 + 8 + 1920) / 3.35e12, rel=1e-12)

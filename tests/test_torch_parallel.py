@@ -109,6 +109,10 @@ else:  # two processes through initialize() from the environment
     keep("two", decode(llr), m)
 if rank == 0:
     np.savez(out, **saved)
+# leave together and tear the groups down before exit: a gloo group left to the
+# interpreter's shutdown can abort a rank whose peers have already gone
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 print("WORKER_OK", rank, flush=True)
 """
 
@@ -251,23 +255,3 @@ def test_two_process_flagship_decode(tmp_path):
     (max_iter=2 keeps the CPU cost bounded), bit-identical to the JAX
     package's single-process decoder."""
     _two_process(tmp_path, "flagship", dna_storage_pchk(), 2, timeout=900)
-
-
-def test_top_level_names_match_the_jax_package():
-    """Every name the JAX package's parallel modules define exists in the
-    port, but ``make_sharded_pallas_decoder``, whose counterpart is
-    ``make_sharded_cuda_decoder`` (and ``CW_AXIS``, which the JAX
-    ``sharded_bp`` imports for its specs and the port's does not use)."""
-    from dna_ldpc_tpu.parallel import mesh as j_mesh
-    from dna_ldpc_tpu.parallel import sharded_bp as j_sharded
-    from dna_ldpc_tpu_torch.parallel import sharded_bp as t_sharded
-
-    def defined(module):
-        return {n for n, v in vars(module).items()
-                if (n.isupper() and not callable(v))
-            or (callable(v) and getattr(v, "__module__", None) == module.__name__)}
-
-    for j, t, missing in ((j_mesh, mesh, set()), (j_distributed, distributed, set()),
-                          (j_sharded, t_sharded, {"make_sharded_pallas_decoder", "CW_AXIS"})):
-        assert {n for n in defined(j) if not hasattr(t, n)} == missing
-    assert hasattr(t_sharded, "make_sharded_cuda_decoder")

@@ -285,20 +285,3 @@ def test_argument_checks(chain):
         t_sc._window_graph(tc, 9)
     with pytest.raises(ValueError, match="block sizes"):
         t_sc.bec_decode_save(LdpcGraph.from_sparse(tc.H), np.zeros((1, tc.n_vars), np.int8), [1], device="cpu")
-
-
-def _defined_names(module):
-    """Functions, classes and constants a module defines (not imports)."""
-    return {n for n, v in vars(module).items()
-            if (n.isupper() and not callable(v))
-            or (callable(v) and getattr(v, "__module__", None) == module.__name__)}
-
-
-def test_top_level_names_match_the_jax_package():
-    """Every name the JAX package's SC-LDPC modules define exists in the
-    port, but the jit cache of the peeling step (eager torch has none)."""
-    from dna_ldpc_tpu.models import scldpc as j_models
-    from dna_ldpc_tpu_torch.models import scldpc as t_models
-
-    for j, t, missing in ((j_models, t_models, set()), (j_sc, t_sc, {"_peel_values_jit"})):
-        assert {n for n in _defined_names(j) if not hasattr(t, n)} == missing
