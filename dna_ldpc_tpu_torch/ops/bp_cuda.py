@@ -54,6 +54,7 @@ import torch
 
 from ..models.blocked import BlockedCode
 from ..utils.gf import PRIMITIVE_POLYS, get_field
+from ..utils.profiling import wait
 from .bp import BpResult
 
 # te is clipped so c2v survives bf16 tanh-domain storage (the TPU
@@ -172,6 +173,7 @@ def _tables(code: BlockedCode, device: torch.device) -> _CodeTensors:
             canon=torch.as_tensor(np.asarray(code.canonical_gather(), np.int64), device=device),
             ext=torch.as_tensor(np.asarray(code.external_gather(), np.int64), device=device),
         )
+        wait(device, 4)  # the uploads
     return cache[device]
 
 
@@ -190,6 +192,7 @@ def _packed_pi(code: BlockedCode, layout: KernelLayout, device: torch.device) ->
     cache = code.__dict__.setdefault("_torch_packed_pi", {})
     if device not in cache:
         cache[device] = torch.as_tensor(pack_pi(np.asarray(code.pi), layout), device=device)
+        wait(device)
     return cache[device]
 
 

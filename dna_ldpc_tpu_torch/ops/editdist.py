@@ -17,6 +17,7 @@ import torch
 
 from ..utils.device import DEFAULT_DEVICE, require_device
 from ..utils.dna import seqs_to_matrix
+from ..utils.profiling import wait
 
 
 def edit_distance_pairs(
@@ -103,6 +104,7 @@ def edit_distance_pairs_device(
     lens = torch.as_tensor(np.asarray(lengths, np.int64), device=dev)
     pa = torch.as_tensor(np.asarray(pairs_a, np.int64), device=dev)
     pb = torch.as_tensor(np.asarray(pairs_b, np.int64), device=dev)
+    wait(dev, 4)  # the uploads
     A, B = S[pa], S[pb]
     la, lb = lens[pa], lens[pb]
     L = A.shape[1]
@@ -125,6 +127,7 @@ def edit_distance_pairs_device(
     yd = torch.where(lane == 0, B[:, :1], torch.zeros_like(B[:, :1]))  # yd[p, i] = B[p, d-1-i]
     dist = torch.where(done_d <= 1, done_d, torch.zeros_like(done_d)).to(i32)
     last = int(done_d.max())
+    wait(dev)
     for d in range(2, min(2 * L, last) + 1):
         yd = torch.where(lane == 0, B[:, min(d - 1, L - 1)][:, None], torch.roll(yd, 1, 1))
         j = d - lane
@@ -137,7 +140,9 @@ def edit_distance_pairs_device(
         cost = torch.where(j < 0, torch.full_like(cost, INF), cost)
         dist = torch.where(done_d == d, cost.gather(1, la[:, None])[:, 0], dist)
         prev2, prev1 = prev1, cost
-    return dist.cpu().numpy().astype(np.int32)
+    out = dist.cpu().numpy().astype(np.int32)
+    wait(dev)
+    return out
 
 
 def edit_distance(s1: str, s2: str) -> int:

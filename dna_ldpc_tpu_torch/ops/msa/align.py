@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import functools
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -42,7 +41,8 @@ import torch
 
 from ... import native_lib
 from ...utils.device import DEFAULT_DEVICE, require_device
-from .consistency import consistency_core
+from ...utils.profiling import HOST, count, span, tracing, wait
+from .consistency import consistency_core, transform_work
 from . import pairhmm
 from .pairhmm import batch_posteriors, k2_posteriors, padded_lmax
 
@@ -460,26 +460,23 @@ def align(
     if n == 1:
         return [(0, seqs[0])]
     pairs = cluster_pairs(n)
-    t0 = time.time()
-    if pair_posts is None:
-        pair_posts = batch_posteriors(
-            [seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs], params=hmm_params, device=device
-        )
-    t0 = _tick(timings, "pairhmm", t0)
-    if pair_dists is None:
-        pair_dists = _ea_dists(seqs, np.array([mea_score(p, use_native) for p in pair_posts], np.float32))
-    t0 = _tick(timings, "ea", t0)
-    if n >= 3 and consistency_iters:
-        pair_posts = _consistency_cpu(pair_posts, n, consistency_iters)
-    t0 = _tick(timings, "consistency", t0)
-    joins = permute_join_order(upgma_join_order(pair_dists), tree_perm)
-    masks = refine_mask_table(n, refine_iters, seed)
-    if not use_native:
-        out = _progressive_refine_numpy(seqs, joins, dict(zip(pairs, pair_posts)), masks)
-    else:
-        out = list(enumerate(native_lib.msa_progressive_refine_native(seqs, joins, pair_posts, masks, CONVERGE_AFTER)))
-    _tick(timings, "progressive_refine", t0)
-    return out
+    with span("align.pairhmm", timings=timings, key="pairhmm"):
+        if pair_posts is None:
+            pair_posts = batch_posteriors(
+                [seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs], params=hmm_params, device=device
+            )
+    with span("align.ea", kind=HOST, timings=timings, key="ea"):
+        if pair_dists is None:
+            pair_dists = _ea_dists(seqs, np.array([mea_score(p, use_native) for p in pair_posts], np.float32))
+    with span("align.consistency", kind=HOST, timings=timings, key="consistency"):
+        if n >= 3 and consistency_iters:
+            pair_posts = _consistency_cpu(pair_posts, n, consistency_iters)
+    with span("align.progressive_refine", kind=HOST, timings=timings, key="progressive_refine"):
+        joins = permute_join_order(upgma_join_order(pair_dists), tree_perm)
+        masks = refine_mask_table(n, refine_iters, seed)
+        if not use_native:
+            return _progressive_refine_numpy(seqs, joins, dict(zip(pairs, pair_posts)), masks)
+        return list(enumerate(native_lib.msa_progressive_refine_native(seqs, joins, pair_posts, masks, CONVERGE_AFTER)))
 
 
 def align_clusters(
@@ -497,27 +494,36 @@ def align_clusters(
     (``_align_clusters_device``); ``DNA_LDPC_DEVICE_MSA=0`` selects the
     flow that feeds the host C++ aligner (``_align_clusters_fused``), as
     in the JAX package (``dna_ldpc_tpu/ops/msa/align.py:554-566``).
-    ``timings`` accumulates seconds per stage."""
+    ``timings`` accumulates seconds per stage; the whole is the span
+    ``msa``."""
     global msa_clusters
     require_device(device)
     if timings is None:
         timings = {}
     msa_clusters += sum(1 for seqs in clusters if len(seqs) >= 2)
-    if os.environ.get("DNA_LDPC_DEVICE_MSA", "1") != "0":
-        return _align_clusters_device(clusters, refine_iters, consistency_iters, seed, device, timings)
-    return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
-
-
-def _tick(timings: dict, key: str, t0: float) -> float:
-    now = time.time()
-    timings[key] = timings.get(key, 0.0) + (now - t0)
-    return now
+    with span("msa"):
+        if os.environ.get("DNA_LDPC_DEVICE_MSA", "1") != "0":
+            return _align_clusters_device(clusters, refine_iters, consistency_iters, seed, device, timings)
+        return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
 
 
 def _sync(dev: torch.device) -> None:
     """Wait for the card, so that a stage's time is its own."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+        wait(dev)
+
+
+def _count_transform(clusters, iters: int) -> None:
+    """Count, on the innermost span, the clusters given to the consistency
+    transform and, while a profiler records, its FLOPs and bytes at the
+    reads' true lengths (``consistency.transform_work``)."""
+    count("clusters", len(clusters))
+    if tracing():
+        for seqs in clusters:
+            flops, nbytes = transform_work([len(q) for q in seqs], iters)
+            count("flops", flops)
+            count("bytes", nbytes)
 
 
 def _align_clusters_device(
@@ -544,9 +550,13 @@ def _align_clusters_device(
     Clusters larger than the top bucket, or whose alignment overflows the
     device column budget, go through ``_align_clusters_fused`` (K2 and the
     consistency transform on the device, the host C++ aligner).
-    ``timings`` keys: "pairhmm", "consistency" (assembly + transform),
-    "msa_device" (joins + merges), "msa_collect" (column-map download and
-    rows), plus the fallback flow's keys when it runs."""
+    Spans and ``timings`` keys: "pairhmm" (``msa.pairs``, host: the pair
+    lists; ``msa.k2``), per batch (``msa.batch``) "consistency"
+    (``msa.assemble``, host: the pair ids and masks; ``msa.consistency``:
+    uploads, gather, transform), "msa_device" (``msa.joins``, host: UPGMA;
+    ``msa.device``: the progressive and refine merges), "msa_collect"
+    (``msa.collect``: the column maps' download, ``msa.rows``), plus the
+    fallback flow's keys under ``msa.fallback`` when it runs."""
     global fallback_clusters
     from .device_msa import MSA_BUCKETS, assemble_transform, cluster_bytes, start_msa_batch
 
@@ -569,21 +579,21 @@ def _align_clusters_device(
     if Lmax > 254:  # the JAX package's column-map bound (uint8 transport)
         return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
 
-    t0 = time.time()
-    span: dict[int, tuple[int, int]] = {}
-    xs: list[str] = []
-    ys: list[str] = []
-    for nb in sorted(by_bucket):
-        for c in by_bucket[nb]:
-            seqs = clusters[c]
-            lo = len(xs)
-            for i, j in cluster_pairs(len(seqs)):
-                xs.append(seqs[i])
-                ys.append(seqs[j])
-            span[c] = (lo, len(xs))
-    if xs:
-        posts, ea_all = k2_posteriors(xs, ys, Lmax, dev)
-    _tick(timings, "pairhmm", t0)
+    with span("msa.pairs", kind=HOST, timings=timings, key="pairhmm"):
+        pair_span: dict[int, tuple[int, int]] = {}
+        xs: list[str] = []
+        ys: list[str] = []
+        for nb in sorted(by_bucket):
+            for c in by_bucket[nb]:
+                seqs = clusters[c]
+                lo = len(xs)
+                for i, j in cluster_pairs(len(seqs)):
+                    xs.append(seqs[i])
+                    ys.append(seqs[j])
+                pair_span[c] = (lo, len(xs))
+    with span("msa.k2", timings=timings, key="pairhmm"):
+        if xs:
+            posts, ea_all = k2_posteriors(xs, ys, Lmax, dev)
 
     for nb in sorted(by_bucket):
         members = by_bucket[nb]
@@ -592,48 +602,54 @@ def _align_clusters_device(
         C_cap = max(1, pairhmm.BUDGET_BYTES // cluster_bytes(nb, Lmax))
         for mlo in range(0, len(members), C_cap):
             batch = members[mlo : mlo + C_cap]
-            t0 = time.time()
-            ids = np.zeros(len(batch) * npair, np.int64)
-            mask = np.zeros(len(batch) * npair, bool)
-            inv_n = np.ones(len(batch), np.float32)
-            for bi, c in enumerate(batch):
-                n = len(clusters[c])
-                inv_n[bi] = 1.0 / n
-                for pi, pair in enumerate(cluster_pairs(n)):
-                    sl = bi * npair + slot_of[pair]
-                    ids[sl] = span[c][0] + pi
-                    mask[sl] = True
-            P = assemble_transform(
-                posts, torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev),
-                torch.as_tensor(inv_n, device=dev), nb, consistency_iters, len(batch), Lmax,
-            )
-            _sync(dev)
-            t0 = _tick(timings, "consistency", t0)
+            with span("msa.batch"):
+                with span("msa.assemble", kind=HOST, timings=timings, key="consistency"):
+                    ids = np.zeros(len(batch) * npair, np.int64)
+                    mask = np.zeros(len(batch) * npair, bool)
+                    inv_n = np.ones(len(batch), np.float32)
+                    for bi, c in enumerate(batch):
+                        n = len(clusters[c])
+                        inv_n[bi] = 1.0 / n
+                        for pi, pair in enumerate(cluster_pairs(n)):
+                            sl = bi * npair + slot_of[pair]
+                            ids[sl] = pair_span[c][0] + pi
+                            mask[sl] = True
+                with span("msa.consistency", timings=timings, key="consistency"):
+                    ids_t, mask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+                    inv_n_t = torch.as_tensor(inv_n, device=dev)
+                    wait(dev, 3)
+                    P = assemble_transform(posts, ids_t, mask_t, inv_n_t, nb, consistency_iters, len(batch), Lmax)
+                    if consistency_iters and nb >= 3:
+                        _count_transform([clusters[c] for c in batch], consistency_iters)
+                    _sync(dev)
 
-            joins_list = [
-                upgma_join_order(_ea_dists(clusters[c], ea_all[span[c][0] : span[c][1]])) for c in batch
-            ]
-            job = start_msa_batch(
-                P, [clusters[c] for c in batch], joins_list, nb, Lmax, refine_iters, seed
-            )
-            del P
-            _sync(dev)
-            t0 = _tick(timings, "msa_device", t0)
+                with span("msa.joins", kind=HOST, timings=timings, key="msa_device"):
+                    joins_list = [
+                        upgma_join_order(_ea_dists(clusters[c], ea_all[pair_span[c][0] : pair_span[c][1]]))
+                        for c in batch
+                    ]
+                with span("msa.device", timings=timings, key="msa_device"):
+                    job = start_msa_batch(
+                        P, [clusters[c] for c in batch], joins_list, nb, Lmax, refine_iters, seed
+                    )
+                    del P
+                    _sync(dev)
 
-            rows_out, _ovf = job.collect()
-            for c, rows in zip(batch, rows_out):
-                if rows is None:
-                    fallback.append(c)
-                else:
-                    out[c] = rows
-            _tick(timings, "msa_collect", t0)
+                with span("msa.collect", timings=timings, key="msa_collect"):
+                    rows_out, _ovf = job.collect()
+                    for c, rows in zip(batch, rows_out):
+                        if rows is None:
+                            fallback.append(c)
+                        else:
+                            out[c] = rows
     posts = None  # free the pair posteriors before the fallback computes its own
 
     if fallback:
         fallback_clusters += len(fallback)
-        rows = _align_clusters_fused(
-            [clusters[c] for c in fallback], refine_iters, consistency_iters, seed, device, timings
-        )
+        with span("msa.fallback"):
+            rows = _align_clusters_fused(
+                [clusters[c] for c in fallback], refine_iters, consistency_iters, seed, device, timings
+            )
         for c, r in zip(fallback, rows):
             out[c] = r
     return out
@@ -650,9 +666,11 @@ def _align_clusters_fused(
     """The ``DNA_LDPC_DEVICE_MSA=0`` flow, counterpart of the JAX
     package's ``_align_clusters_fused``: K2 over every pair and the
     consistency transform on ``device`` (module docstring), the
-    progressive and refine stages in the host C++ aligner. ``timings``
-    keys: "pairhmm" (kernel + EA download), "consistency" (transform +
-    posterior download) and "progressive_refine" (waiting for the host
+    progressive and refine stages in the host C++ aligner. Spans and
+    ``timings`` keys: "pairhmm" (``msa.pairs``, host; ``msa.k2``: kernel +
+    EA download), "consistency" (``msa.consistency``: transform +
+    posterior download, the aligner's jobs handed out) and
+    "progressive_refine" (``msa.host_aligner``: waiting for the host
     aligner after the last batch)."""
     dev = torch.device(device)
     out: list = [None] * len(clusters)
@@ -666,32 +684,32 @@ def _align_clusters_fused(
         return out
 
     # ---- 1. pair-HMM over every pair of every cluster -------------------
-    t0 = time.time()
-    span: dict[int, tuple[int, int]] = {}
-    xs: list[str] = []
-    ys: list[str] = []
-    for c in multi:
-        seqs = clusters[c]
-        lo = len(xs)
-        for i, j in cluster_pairs(len(seqs)):
-            xs.append(seqs[i])
-            ys.append(seqs[j])
-        span[c] = (lo, len(xs))
-    Lmax = padded_lmax(max(len(s) for s in xs + ys))
-    posts, ea_all = k2_posteriors(xs, ys, Lmax, dev)
-    t0 = _tick(timings, "pairhmm", t0)
+    with span("msa.pairs", kind=HOST, timings=timings, key="pairhmm"):
+        pair_span: dict[int, tuple[int, int]] = {}
+        xs: list[str] = []
+        ys: list[str] = []
+        for c in multi:
+            seqs = clusters[c]
+            lo = len(xs)
+            for i, j in cluster_pairs(len(seqs)):
+                xs.append(seqs[i])
+                ys.append(seqs[j])
+            pair_span[c] = (lo, len(xs))
+        Lmax = padded_lmax(max(len(s) for s in xs + ys))
+    with span("msa.k2", timings=timings, key="pairhmm"):
+        posts, ea_all = k2_posteriors(xs, ys, Lmax, dev)
 
     # ---- 2-3. EA distances, consistency batches, host aligner -----------
     futures = {}
 
     def crops(c, mats):
-        lo, _ = span[c]
+        lo, _ = pair_span[c]
         return [
             mats[k, : len(xs[lo + k]), : len(ys[lo + k])] for k in range(len(mats))
         ]
 
     def submit(pool, c, pair_posts):
-        lo, hi = span[c]
+        lo, hi = pair_span[c]
         futures[c] = pool.submit(
             align, clusters[c], refine_iters, 0, seed, pair_posts,
             pair_dists=_ea_dists(clusters[c], ea_all[lo:hi]), device=device,
@@ -699,30 +717,34 @@ def _align_clusters_fused(
 
     by_n: dict[int, list[int]] = {}
     with ThreadPoolExecutor(max_workers=N_WORKERS) as pool:
-        for c in multi:
-            n = len(clusters[c])
-            if n >= 3 and consistency_iters:
-                by_n.setdefault(n, []).append(c)
-            else:  # no transform: the bf16 posteriors go to the aligner as they are
-                lo, hi = span[c]
-                submit(pool, c, crops(c, posts[lo:hi].to(torch.float32).cpu().numpy()))
-        for n in sorted(by_n):
-            members = by_n[n]
-            npair = n * (n - 1) // 2
-            # block tensor, its product and the updated copy, f32
-            cap = max(1, pairhmm.BUDGET_BYTES // (4 * 4 * n * n * Lmax * Lmax))
-            for blo in range(0, len(members), cap):
-                batch = members[blo : blo + cap]
-                idx = torch.as_tensor(
-                    np.concatenate([np.arange(*span[c]) for c in batch]), device=dev
-                )
-                mats = posts[idx].to(torch.float32).view(len(batch), npair, Lmax, Lmax)
-                inv_n = torch.full((len(batch),), 1.0 / n, dtype=torch.float32, device=dev)
-                res = consistency_core(mats, inv_n, n, consistency_iters).cpu().numpy()
-                for bi, c in enumerate(batch):
-                    submit(pool, c, crops(c, res[bi]))
-        t0 = _tick(timings, "consistency", t0)
-        for c, fut in futures.items():
-            out[c] = fut.result()
-    _tick(timings, "progressive_refine", t0)
+        with span("msa.consistency", timings=timings, key="consistency"):
+            for c in multi:
+                n = len(clusters[c])
+                if n >= 3 and consistency_iters:
+                    by_n.setdefault(n, []).append(c)
+                else:  # no transform: the bf16 posteriors go to the aligner as they are
+                    lo, hi = pair_span[c]
+                    mats = posts[lo:hi].to(torch.float32).cpu().numpy()
+                    wait(dev)
+                    submit(pool, c, crops(c, mats))
+            for n in sorted(by_n):
+                members = by_n[n]
+                npair = n * (n - 1) // 2
+                # block tensor, its product and the updated copy, f32
+                cap = max(1, pairhmm.BUDGET_BYTES // (4 * 4 * n * n * Lmax * Lmax))
+                for blo in range(0, len(members), cap):
+                    batch = members[blo : blo + cap]
+                    idx = torch.as_tensor(
+                        np.concatenate([np.arange(*pair_span[c]) for c in batch]), device=dev
+                    )
+                    mats = posts[idx].to(torch.float32).view(len(batch), npair, Lmax, Lmax)
+                    inv_n = torch.full((len(batch),), 1.0 / n, dtype=torch.float32, device=dev)
+                    res = consistency_core(mats, inv_n, n, consistency_iters).cpu().numpy()
+                    wait(dev, 2)  # the index upload, the download
+                    _count_transform([clusters[c] for c in batch], consistency_iters)
+                    for bi, c in enumerate(batch):
+                        submit(pool, c, crops(c, res[bi]))
+        with span("msa.host_aligner", kind=HOST, timings=timings, key="progressive_refine"):
+            for c, fut in futures.items():
+                out[c] = fut.result()
     return out

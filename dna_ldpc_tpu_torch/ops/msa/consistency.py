@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ...utils.device import DEFAULT_DEVICE, full_f32_matmul, require_device
+from ...utils.profiling import device_time, wait
 from .pairhmm import MIN_SPARSE_PROB
 
 N_BUCKETS = (3, 4, 6, 8, 12, 16, 24, 32)
@@ -38,22 +39,42 @@ N_BUCKETS = (3, 4, 6, 8, 12, 16, 24, 32)
 def consistency_core(pair_mats: torch.Tensor, inv_n: torch.Tensor, n: int, iters: int) -> torch.Tensor:
     """pair_mats: [C, n*(n-1)/2, L, L] float32 i<j pair posteriors of C
     clusters of n sequences (cluster_pairs order, zero padded); inv_n: [C]
-    float32 1/n. Returns the transformed pairs in the same layout."""
+    float32 1/n. Returns the transformed pairs in the same layout. On the
+    card, the work between the index uploads and the return is event-timed
+    into the innermost span while a profiler records."""
     C, npair, L, _ = pair_mats.shape
+    dev = pair_mats.device
     ii, jj = np.triu_indices(n, k=1)
-    ii = torch.as_tensor(ii, device=pair_mats.device)
-    jj = torch.as_tensor(jj, device=pair_mats.device)
-    A = pair_mats.new_zeros((C, n, n, L, L))
-    A[:, ii, jj] = pair_mats
-    A[:, jj, ii] = pair_mats.transpose(-1, -2)
-    scale = inv_n.to(pair_mats.dtype)[:, None, None, None, None]
-    with full_f32_matmul():
-        for _ in range(iters):
-            # rows (i, a), columns (z, b): S = A @ A sums over z and b
-            Am = A.permute(0, 1, 3, 2, 4).reshape(C, n * L, n * L)
-            S = torch.bmm(Am, Am).view(C, n, L, n, L).permute(0, 1, 3, 2, 4)
-            A = torch.where(A < MIN_SPARSE_PROB, 0.0, (2.0 * A + S) * scale)
-    return A[:, ii, jj]
+    ii = torch.as_tensor(ii, device=dev)
+    jj = torch.as_tensor(jj, device=dev)
+    wait(dev, 2)
+    with device_time(dev):
+        A = pair_mats.new_zeros((C, n, n, L, L))
+        A[:, ii, jj] = pair_mats
+        A[:, jj, ii] = pair_mats.transpose(-1, -2)
+        scale = inv_n.to(pair_mats.dtype)[:, None, None, None, None]
+        with full_f32_matmul():
+            for _ in range(iters):
+                # rows (i, a), columns (z, b): S = A @ A sums over z and b
+                Am = A.permute(0, 1, 3, 2, 4).reshape(C, n * L, n * L)
+                S = torch.bmm(Am, Am).view(C, n, L, n, L).permute(0, 1, 3, 2, 4)
+                A = torch.where(A < MIN_SPARSE_PROB, 0.0, (2.0 * A + S) * scale)
+        return A[:, ii, jj]
+
+
+def transform_work(lengths, iters: int) -> tuple[int, int]:
+    """The consistency transform's work on one cluster at its reads' true
+    lengths ``lengths`` (padding not counted): (FLOPs, bytes). FLOPs:
+    per iteration, for every pair i < j and every z not in {i, j}, the
+    product P_iz @ P_zj, 2 L_i L_z L_j operations; summed, 6 e3(L) with
+    e3 the third elementary symmetric polynomial of the lengths. Bytes:
+    every pair posterior read once and written once at rest in bf16,
+    4 e2(L)."""
+    L = np.asarray(lengths, np.int64)
+    p1, p2, p3 = int(L.sum()), int((L * L).sum()), int((L * L * L).sum())
+    e3_6 = p1 ** 3 - 3 * p1 * p2 + 2 * p3  # 6 e3
+    e2_2 = p1 * p1 - p2                    # 2 e2
+    return iters * e3_6, 2 * e2_2
 
 
 def _consistency_host(posts: list[np.ndarray], n: int, iters: int) -> list[np.ndarray]:

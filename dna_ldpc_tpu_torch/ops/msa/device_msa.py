@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils.profiling import HOST, count, span, wait
 from . import pairhmm
 from .align import CONVERGE_AFTER, refine_mask_table
 from .consistency import consistency_core
@@ -179,7 +180,8 @@ def _msa_init(lens, Cmax: int, L: int):
 def _msa_progressive(Pblock, cpos, width, jA, jB, Cmax: int, L: int):
     """Run the progressive waves (jA/jB: [nwaves, C, nb] bool numpy; a
     wave no cluster joins in is inert and skipped). Returns
-    (cpos, width, overflow [C])."""
+    (cpos, width, overflow [C]). Each merge is a span ``msa.merge``; the
+    enclosing span counts ``merges``."""
     dev = cpos.device
     ovf = torch.zeros(cpos.shape[0], dtype=torch.bool, device=dev)
     for k in range(jA.shape[0]):
@@ -187,9 +189,18 @@ def _msa_progressive(Pblock, cpos, width, jA, jB, Cmax: int, L: int):
             continue
         mA = torch.as_tensor(jA[k], device=dev)
         mB = torch.as_tensor(jB[k], device=dev)
-        cpos, width, _, ovf_now = _merge_step(Pblock, cpos, width, mA, mB, ~ovf, Cmax, L)
+        wait(dev, 2)
+        with span("msa.merge"):
+            cpos, width, _, ovf_now = _merge_step(Pblock, cpos, width, mA, mB, ~ovf, Cmax, L)
         ovf = ovf | (ovf_now & mA.any(1))
+        count("merges")
     return cpos, width, ovf
+
+
+def _any_live(live) -> bool:
+    """Whether any cluster is still live (a wait on the card)."""
+    wait(live.device)
+    return bool(live.any())
 
 
 def _msa_refine(Pblock, cpos, width, frozen, ovf, rA, rows_pc, Cmax: int, L: int):
@@ -198,20 +209,24 @@ def _msa_refine(Pblock, cpos, width, frozen, ovf, rA, rows_pc, Cmax: int, L: int
     rows_pc: [C] per-cluster mask-table length). A cluster freezes after
     5 consecutive no-change iterations; the host loop tests once per
     iteration whether any cluster is still live (one sync each) and exits
-    when every cluster is frozen, overflowed, or out of mask rows."""
+    when every cluster is frozen, overflowed, or out of mask rows. Each
+    iteration's merge is a span ``msa.merge``; the enclosing span counts
+    ``iterations``."""
     unchanged = torch.zeros(cpos.shape[0], dtype=torch.int32, device=cpos.device)
     it = 0
-    while it < rA.shape[0] and bool((~(frozen | ovf) & (rows_pc > it)).any()):
+    while it < rA.shape[0] and _any_live(~(frozen | ovf) & (rows_pc > it)):
         mA = rA[it]
         mB = (cpos < L).any(2) & ~mA
         row_valid = mA.any(1)
         upd_ok = ~frozen & ~ovf
-        cpos, width, changed, ovf_now = _merge_step(Pblock, cpos, width, mA, mB, upd_ok, Cmax, L)
+        with span("msa.merge"):
+            cpos, width, changed, ovf_now = _merge_step(Pblock, cpos, width, mA, mB, upd_ok, Cmax, L)
         ovf = ovf | (ovf_now & upd_ok & row_valid)
         act = row_valid & upd_ok
         unchanged = torch.where(act, torch.where(changed, 0, unchanged + 1), unchanged)
         frozen = frozen | (unchanged >= CONVERGE_AFTER)
         it += 1
+        count("iterations")
     return cpos, width, frozen, ovf
 
 
@@ -256,25 +271,28 @@ class MsaJob:
     def collect(self):
         """(rows_per_cluster, overflow_flags): rows_per_cluster[c] is the
         aligned [(ordinal, row)] list (None where overflow), matching
-        align()'s output contract."""
+        align()'s output contract. The rows are built in the span
+        ``msa.rows``."""
         L = self._L
         C_true = len(self._seqs)
         cpos_np = self._cpos[:C_true].cpu().numpy()
         width_np = self._width[:C_true].amax(1).cpu().numpy()
         ovf_np = self._ovf[:C_true].cpu().numpy()
+        wait(self._cpos.device, 3)
         out: list = []
-        for c, seqs in enumerate(self._seqs):
-            if ovf_np[c]:
-                out.append(None)
-                continue
-            w = int(width_np[c])
-            rows = []
-            for s, q in enumerate(seqs):
-                qb = np.frombuffer(q.encode("latin1"), np.uint8)
-                qb = np.concatenate([qb, np.full(L + 1 - len(qb), ord("-"), np.uint8)])
-                row = qb[np.minimum(cpos_np[c, s, :w], L)]
-                rows.append((s, row.tobytes().decode("latin1")))
-            out.append(rows)
+        with span("msa.rows", kind=HOST):
+            for c, seqs in enumerate(self._seqs):
+                if ovf_np[c]:
+                    out.append(None)
+                    continue
+                w = int(width_np[c])
+                rows = []
+                for s, q in enumerate(seqs):
+                    qb = np.frombuffer(q.encode("latin1"), np.uint8)
+                    qb = np.concatenate([qb, np.full(L + 1 - len(qb), ord("-"), np.uint8)])
+                    row = qb[np.minimum(cpos_np[c, s, :w], L)]
+                    rows.append((s, row.tobytes().decode("latin1")))
+                out.append(rows)
         return out, ovf_np
 
 
@@ -292,42 +310,51 @@ def start_msa_batch(
 
     P: [C_cap, npair, Lpad+1, Lpad+1] (f32 or bf16), zero-padded at
     row/col Lpad and on pad pairs/clusters. seqs_list/joins_list: the
-    C_true real clusters (C_true <= C_cap)."""
+    C_true real clusters (C_true <= C_cap). Spans: ``msa.masks``
+    (host: the lengths and wave masks, and inside ``msa.refine`` the
+    refine masks), ``msa.progressive`` and ``msa.refine`` (their
+    ``msa.merge`` steps and uploads)."""
     dev = P.device
     C_cap = P.shape[0]
     C_true = len(seqs_list)
     Cmax = Lpad + COLUMN_SLACK
     L = Lpad
 
-    lens = np.zeros((C_cap, nb), np.int32)
-    for c, seqs in enumerate(seqs_list):
-        lens[c, : len(seqs)] = [len(q) for q in seqs]
-    jA = np.zeros((nb - 1, C_cap, nb), bool)
-    jB = np.zeros((nb - 1, C_cap, nb), bool)
-    for c, (seqs, joins) in enumerate(zip(seqs_list, joins_list)):
-        jA[:, c, :], jB[:, c, :] = wave_masks(joins, len(seqs), nb)
-
-    Pblock = build_pblock(P, nb)
-    cpos, width = _msa_init(torch.as_tensor(lens, device=dev), Cmax, L)
-    cpos, width, ovf = _msa_progressive(Pblock, cpos, width, jA, jB, Cmax, L)
-
-    # refinement: per-cluster mask tables by true n (clusters with n < 3
-    # skip refinement entirely -> all-false rows)
-    tables = {n: refine_mask_table(n, refine_iters, seed) for n in {len(s) for s in seqs_list}}
-    max_rows = max((t.shape[0] for t in tables.values()), default=0)
-    if max_rows:
-        rA = np.zeros((max_rows, C_cap, nb), bool)
-        rows_pc = np.zeros(C_cap, np.int32)
+    with span("msa.masks", kind=HOST):
+        lens = np.zeros((C_cap, nb), np.int32)
         for c, seqs in enumerate(seqs_list):
-            tab = tables[len(seqs)]
-            k, n = tab.shape
-            rA[:k, c, :n] = tab.astype(bool)
-            rows_pc[c] = k
-        frozen = torch.as_tensor(np.arange(C_cap) >= C_true, device=dev)
-        cpos, width, frozen, ovf = _msa_refine(
-            Pblock, cpos, width, frozen, ovf, torch.as_tensor(rA, device=dev),
-            torch.as_tensor(rows_pc, device=dev), Cmax, L,
-        )
+            lens[c, : len(seqs)] = [len(q) for q in seqs]
+        jA = np.zeros((nb - 1, C_cap, nb), bool)
+        jB = np.zeros((nb - 1, C_cap, nb), bool)
+        for c, (seqs, joins) in enumerate(zip(seqs_list, joins_list)):
+            jA[:, c, :], jB[:, c, :] = wave_masks(joins, len(seqs), nb)
+
+    with span("msa.progressive"):
+        Pblock = build_pblock(P, nb)
+        lens_t = torch.as_tensor(lens, device=dev)
+        wait(dev)
+        cpos, width = _msa_init(lens_t, Cmax, L)
+        cpos, width, ovf = _msa_progressive(Pblock, cpos, width, jA, jB, Cmax, L)
+
+    with span("msa.refine"):
+        # refinement: per-cluster mask tables by true n (clusters with n < 3
+        # skip refinement entirely -> all-false rows)
+        with span("msa.masks", kind=HOST):
+            tables = {n: refine_mask_table(n, refine_iters, seed) for n in {len(s) for s in seqs_list}}
+            max_rows = max((t.shape[0] for t in tables.values()), default=0)
+            if max_rows:
+                rA = np.zeros((max_rows, C_cap, nb), bool)
+                rows_pc = np.zeros(C_cap, np.int32)
+                for c, seqs in enumerate(seqs_list):
+                    tab = tables[len(seqs)]
+                    k, n = tab.shape
+                    rA[:k, c, :n] = tab.astype(bool)
+                    rows_pc[c] = k
+        if max_rows:
+            frozen = torch.as_tensor(np.arange(C_cap) >= C_true, device=dev)
+            rA_t, rows_pc_t = torch.as_tensor(rA, device=dev), torch.as_tensor(rows_pc, device=dev)
+            wait(dev, 3)
+            cpos, width, frozen, ovf = _msa_refine(Pblock, cpos, width, frozen, ovf, rA_t, rows_pc_t, Cmax, L)
     return MsaJob(seqs_list, cpos, width, ovf, L)
 
 

@@ -32,6 +32,7 @@ import torch
 
 from ...utils.device import DEFAULT_DEVICE, require_device
 from ...utils.dna import seqs_to_matrix
+from ...utils.profiling import count, span, tracing, wait
 
 LOG_ZERO = -1e30
 MIN_SPARSE_PROB = 0.01
@@ -166,7 +167,10 @@ def k2_posteriors(xs, ys, Lmax: int, dev: torch.device):
     """K2 (or its twin on the CPU) over read pairs in batches sized from
     BUDGET_BYTES. Returns (posteriors [P, Lmax, Lmax] bf16 on ``dev`` —
     the value set the JAX package's transport carries — and the EA scores
-    [P] f32 numpy)."""
+    [P] f32 numpy). Counts on the innermost span (the callers' ``msa.k2``):
+    ``launches`` (K2's, its twin's calls on the CPU), ``pairs``, and while
+    a profiler records ``cells`` = sum of (lx + 1)(ly + 1), the DP planes,
+    and ``residues`` = sum of lx + ly."""
     from .pairhmm_cuda import kernel_layout, post_ea
 
     X, Y, lx, ly = encode_pairs(xs, ys, Lmax)
@@ -185,7 +189,14 @@ def k2_posteriors(xs, ys, Lmax: int, dev: torch.device):
         )
         posts[lo:hi] = post.to(torch.bfloat16)
         ea_all[lo:hi] = ea.cpu().numpy()
+        wait(dev, 5)  # four uploads, the EA download
         del post, ea
+        count("launches")
+        count("pairs", hi - lo)
+        if tracing():
+            a, b = lx[lo:hi].astype(np.int64), ly[lo:hi].astype(np.int64)
+            count("cells", int(((a + 1) * (b + 1)).sum()))
+            count("residues", int((a + b).sum()))
     return posts, ea_all
 
 
@@ -371,7 +382,8 @@ def batch_posteriors(seqs_x, seqs_y, Lmax: int | None = None, params=None, devic
         Lmax = padded_lmax(max((len(s) for s in list(seqs_x) + list(seqs_y)), default=1))
     P = len(seqs_x)
     if params is None:
-        post = k2_posteriors(seqs_x, seqs_y, Lmax, dev)[0]
+        with span("msa.k2"):
+            post = k2_posteriors(seqs_x, seqs_y, Lmax, dev)[0]
         lx, ly = [len(s) for s in seqs_x], [len(s) for s in seqs_y]
     else:
         X, Y, Xr, Yr, lx, ly, _ = _encode_batch(seqs_x, seqs_y, Lmax)
@@ -382,6 +394,7 @@ def batch_posteriors(seqs_x, seqs_y, Lmax: int | None = None, params=None, devic
             args = [torch.as_tensor(a[sl], device=dev) for a in (X, Y, Xr, Yr, lx, ly)]
             post[sl] = _posteriors_device(*args, Lmax, params)[0].to(torch.bfloat16)
     post = post.to(torch.float32).cpu().numpy()
+    wait(dev)
     return [post[p, : lx[p], : ly[p]] for p in range(P)]
 
 

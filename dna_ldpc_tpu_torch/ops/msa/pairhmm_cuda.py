@@ -47,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils.profiling import device_time, wait
 from .pairhmm import CONST_NAMES, MIN_SPARSE_PROB, hmm_consts
 
 launches = 0  # kernel launches since the last reset (main-path evidence)
@@ -227,12 +228,13 @@ def _post_ea_cuda(xc, yc, lx, ly, Lmax: int):
     lx = lx.to(torch.int32).contiguous()
     ly = ly.to(torch.int32).contiguous()
     consts = torch.as_tensor(hmm_consts(), device=dev)
+    wait(dev)
     fwdm = torch.empty((P, lay["fm_stride"]), dtype=torch.float32, device=dev)
     edge = torch.empty((P, lay["edge_floats"]), dtype=torch.float32, device=dev)
     post = torch.empty((P, Lmax, Lmax), dtype=torch.float32, device=dev)
     ea = torch.empty(P, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), device_time(dev):
         status = lib.pairhmm_launch(
             xc.data_ptr(), yc.data_ptr(), lx.data_ptr(), ly.data_ptr(),
             consts.data_ptr(), fwdm.data_ptr(), edge.data_ptr(), post.data_ptr(), ea.data_ptr(),

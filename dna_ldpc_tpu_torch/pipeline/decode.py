@@ -40,6 +40,7 @@ from ..models.ldpc_graph import LdpcGraph
 from ..models.rs_ldpc import dna_storage_pchk
 from ..ops.bp import bp_decode
 from ..utils.device import DEFAULT_DEVICE, require_device
+from ..utils.profiling import HOST, span, wait
 from .llr import Aligner, compute_trial_llrs, rs_filter_reads
 
 ERASURE_THRESHOLD = 140  # decoder.py:591
@@ -83,7 +84,9 @@ def deployed_graph() -> LdpcGraph:
 def _decode_batch(graph: LdpcGraph, llrs: np.ndarray, max_iter: int, device) -> np.ndarray:
     """BP-decode [K, N] soft values on ``device`` -> [K, N] hard outputs."""
     llr = torch.as_tensor(np.ascontiguousarray(llrs, np.float32), device=device)
-    return bp_decode(graph, llr, max_iter=max_iter).bits.cpu().numpy()
+    bits = bp_decode(graph, llr, max_iter=max_iter).bits.cpu().numpy()
+    wait(device, 2)  # the upload and the download
+    return bits
 
 
 def anneal_decode(
@@ -115,9 +118,8 @@ def anneal_decode(
         fail_first = list(fail_first)
         phase["first_decode"] = 0.0
     else:
-        t0 = time.time()
-        dec = _decode_batch(graph, soft, config.max_iter, config.device)
-        phase["first_decode"] = time.time() - t0
+        with span("bp.first", timings=phase, key="first_decode"):
+            dec = _decode_batch(graph, soft, config.max_iter, config.device)
 
         errs = (dec != codewords).sum(axis=1)
         fail_first = [int(i) + 1 for i in np.nonzero(errs)[0]]
@@ -126,28 +128,27 @@ def anneal_decode(
         if save_cb is not None:
             save_cb(dec, fail_first, fail, n_iters)
 
-    t0 = time.time()
-    epsil2 = config.epsil - config.anneal_step * (n_iters + 1)
-    base_mag = np.log((1 - config.epsil) / config.epsil)
-    while fail and epsil2 > config.anneal_floor:
-        n_iters += 1
-        eps_eff = epsil2 - config.anneal_step
-        scale = np.log((1 - eps_eff) / eps_eff) / base_mag
-        idx = np.array(fail) - 1
-        re_soft = soft[idx] * scale  # zeros stay zero
-        epsil2 -= config.anneal_step
+    with span("bp.anneal", timings=phase, key="second_decode"):
+        epsil2 = config.epsil - config.anneal_step * (n_iters + 1)
+        base_mag = np.log((1 - config.epsil) / config.epsil)
+        while fail and epsil2 > config.anneal_floor:
+            n_iters += 1
+            eps_eff = epsil2 - config.anneal_step
+            scale = np.log((1 - eps_eff) / eps_eff) / base_mag
+            idx = np.array(fail) - 1
+            re_soft = soft[idx] * scale  # zeros stay zero
+            epsil2 -= config.anneal_step
 
-        dec_f = _decode_batch(graph, re_soft, config.max_iter, config.device)
-        dec[idx] = dec_f
-        errs_f = (dec_f != codewords[idx]).sum(axis=1)
-        if config.strict_reference_failure_tracking:
-            # literal decoder.py:660-662: only the last failure survives
-            fail = [fail[-1]] if errs_f[-1] != 0 else []
-        else:
-            fail = [int(fail[k]) for k in range(len(fail)) if errs_f[k] != 0]
-        if save_cb is not None:
-            save_cb(dec, fail_first, fail, n_iters)
-    phase["second_decode"] = time.time() - t0
+            dec_f = _decode_batch(graph, re_soft, config.max_iter, config.device)
+            dec[idx] = dec_f
+            errs_f = (dec_f != codewords[idx]).sum(axis=1)
+            if config.strict_reference_failure_tracking:
+                # literal decoder.py:660-662: only the last failure survives
+                fail = [fail[-1]] if errs_f[-1] != 0 else []
+            else:
+                fail = [int(fail[k]) for k in range(len(fail)) if errs_f[k] != 0]
+            if save_cb is not None:
+                save_cb(dec, fail_first, fail, n_iters)
     return dec, fail_first, fail, n_iters
 
 
@@ -173,9 +174,15 @@ def decode_trial(
     the checkpoint also carries decoder progress, the annealing loop
     restarts where it was. The checkpoint is written after ingest and
     updated after the first decode and after every annealing round."""
+    config = config or TrialConfig()
+    with span("trial", root=True):
+        return _decode_trial(reads, quals, codewords, config, aligner, graph, checkpoint_path)
+
+
+def _decode_trial(reads, quals, codewords, config: TrialConfig, aligner, graph, checkpoint_path) -> TrialResult:
+    """``decode_trial`` inside its root span ``trial``."""
     from .checkpoint import TrialCheckpoint
 
-    config = config or TrialConfig()
     t_start = time.time()
     graph = graph or deployed_graph()
     phase = {}
@@ -191,17 +198,15 @@ def decode_trial(
         n_kept = ckpt.n_reads_kept
         phase["rs_decode"] = phase["llr"] = 0.0
     else:
-        t0 = time.time()
-        filtered = rs_filter_reads(reads, quals)
-        phase["rs_decode"] = time.time() - t0
+        with span("trial.rs_filter", kind=HOST, timings=phase, key="rs_decode"):
+            filtered = rs_filter_reads(reads, quals)
         n_kept = len(filtered.payloads)
 
-        t0 = time.time()
         llr_sub: dict = {}
-        llr_table = compute_trial_llrs(
-            filtered, config.epsil, aligner, device=config.device, timings=llr_sub
-        )  # [18432, 272]
-        phase["llr"] = time.time() - t0
+        with span("trial.soft_information", timings=phase, key="llr"):
+            llr_table = compute_trial_llrs(
+                filtered, config.epsil, aligner, device=config.device, timings=llr_sub
+            )  # [18432, 272]
         for k, v in llr_sub.items():
             phase[f"llr_{k}"] = v
         if checkpoint_path:
@@ -232,9 +237,10 @@ def decode_trial(
                 n_reads_kept=n_kept,
             ).save(checkpoint_path)
 
-    dec, fail_first, fail, n_iters = anneal_decode(
-        graph, soft, codewords, config, phase, resume=resume, save_cb=save_cb
-    )
+    with span("trial.bp"):
+        dec, fail_first, fail, n_iters = anneal_decode(
+            graph, soft, codewords, config, phase, resume=resume, save_cb=save_cb
+        )
 
     hard = (soft < 0).astype(np.uint8)  # LLR >= 0 -> 0 (decoder.py:565-571)
     re_decode = (dec != hard).sum(axis=0)  # [18432] per-strand flip counts

@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import functools
 import math
-import time
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
@@ -61,6 +60,7 @@ from ..models.rs_index import decode_index_bits
 from ..ops.editdist import edit_distance_pairs
 from ..utils import dna
 from ..utils.device import DEFAULT_DEVICE, require_device
+from ..utils.profiling import HOST, span
 
 # aligner: list of sequences -> list of (input ordinal, aligned row) in MSA
 # output order (rows may be reordered, like MUSCLE output).
@@ -192,24 +192,22 @@ def cluster_llr(
         if all(len(r) == PAYLOAD_NT for r in reads):
             return _count_llr(reads, quals, mag)
         # mixed lengths: all-pairs pre-filter (decoder.py:178-187)
-        t0 = time.time()
-        n = len(reads)
-        ii, kk = np.triu_indices(n, k=1)
-        mat = dna.seqs_to_matrix(reads, fill=b"\x00")
-        lens = np.array([len(r) for r in reads])
-        dists = edit_distance_pairs(mat, lens, ii, kk)
-        close = dists < EDIT_PREFILTER_THRESHOLD
-        keep = np.unique(np.concatenate([ii[close], kk[close]]))
-        t0 = _tick(timings, "edit_prefilter", t0)
+        with span("llr.prefilter", kind=HOST, timings=timings, key="edit_prefilter"):
+            n = len(reads)
+            ii, kk = np.triu_indices(n, k=1)
+            mat = dna.seqs_to_matrix(reads, fill=b"\x00")
+            lens = np.array([len(r) for r in reads])
+            dists = edit_distance_pairs(mat, lens, ii, kk)
+            close = dists < EDIT_PREFILTER_THRESHOLD
+            keep = np.unique(np.concatenate([ii[close], kk[close]]))
         if len(keep) == 0:
             return None  # erasure (decoder.py:188-197)
         if aligner is None:
             raise ValueError("mixed-length cluster requires an aligner")
-        rows = aligner([reads[i] for i in keep])
-        t0 = _tick(timings, "msa", t0)
-        llr = _aligned_llr(rows, [quals[i] for i in keep], mag)
-        _tick(timings, "counting", t0)
-        return llr
+        with span("llr.aligner", timings=timings, key="msa"):
+            rows = aligner([reads[i] for i in keep])
+        with span("llr.counting", kind=HOST, timings=timings, key="counting"):
+            return _aligned_llr(rows, [quals[i] for i in keep], mag)
 
     # single-read cluster
     r = reads[0]
@@ -220,12 +218,6 @@ def cluster_llr(
             llr[PAYLOAD_BITS - 1] = mag if lsb == 0 else -mag
         return llr
     return _count_llr([r], [quals[0]], mag)
-
-
-def _tick(timings: dict, key: str, t0: float) -> float:
-    now = time.time()
-    timings[key] = timings.get(key, 0.0) + (now - t0)
-    return now
 
 
 def compute_trial_llrs(
@@ -260,21 +252,20 @@ def compute_trial_llrs(
     strands = filtered.strands
     if len(strands) == 0:
         return out
-    t0 = time.time()
-    boundaries = np.nonzero(np.diff(strands))[0] + 1
-    starts = np.concatenate([[0], boundaries]).astype(np.int64)
-    ends = np.concatenate([boundaries, [len(strands)]]).astype(np.int64)
-    strand_of_cluster = strands[starts].astype(np.int32)
+    with span("llr.native_count", kind=HOST, timings=timings, key="native_count"):
+        boundaries = np.nonzero(np.diff(strands))[0] + 1
+        starts = np.concatenate([[0], boundaries]).astype(np.int64)
+        ends = np.concatenate([boundaries, [len(strands)]]).astype(np.int64)
+        strand_of_cluster = strands[starts].astype(np.int32)
 
-    pending_mask = np.ones(len(starts), dtype=np.int32)
-    if use_native:
-        buf, offsets, lengths = native_lib.pack_seqs(filtered.payloads)
-        mag = math.log((1 - epsil) / epsil)
-        pending_mask = native_lib.count_trial_llrs_native(
-            buf, offsets, lengths, np.ascontiguousarray(filtered.quals, np.int64),
-            starts, ends, strand_of_cluster, mag, out,
-        )
-    timings["native_count"] = timings.get("native_count", 0.0) + (time.time() - t0)
+        pending_mask = np.ones(len(starts), dtype=np.int32)
+        if use_native:
+            buf, offsets, lengths = native_lib.pack_seqs(filtered.payloads)
+            mag = math.log((1 - epsil) / epsil)
+            pending_mask = native_lib.count_trial_llrs_native(
+                buf, offsets, lengths, np.ascontiguousarray(filtered.quals, np.int64),
+                starts, ends, strand_of_cluster, mag, out,
+            )
     pending = np.nonzero(pending_mask)[0]
     if len(pending) == 0:
         return out
@@ -322,37 +313,38 @@ def _process_mixed_clusters_batched(
     mag = math.log((1 - epsil) / epsil)
 
     # ---- batched edit-distance pre-filter --------------------------------
-    t0 = time.time()
-    infos = []
-    pa, pb = [], []
-    for c in pending:
-        s, e = int(starts[c]), int(ends[c])
-        reads = filtered.payloads[s:e]
-        quals = list(filtered.quals[s:e])
-        ii, kk = np.triu_indices(len(reads), k=1)
-        infos.append((int(strands[s]), reads, quals, len(pa), len(ii)))
-        pa.extend((s + ii).tolist())
-        pb.extend((s + kk).tolist())
-    pa = np.asarray(pa, np.int64)
-    pb = np.asarray(pb, np.int64)
-    dists = _edit_distances(filtered, pa, pb, device) if len(pa) else np.zeros(0, np.int32)
+    with span("llr.prefilter", timings=timings, key="edit_prefilter"):
+        with span("llr.prefilter.pairs", kind=HOST):
+            infos = []
+            pa, pb = [], []
+            for c in pending:
+                s, e = int(starts[c]), int(ends[c])
+                reads = filtered.payloads[s:e]
+                quals = list(filtered.quals[s:e])
+                ii, kk = np.triu_indices(len(reads), k=1)
+                infos.append((int(strands[s]), reads, quals, len(pa), len(ii)))
+                pa.extend((s + ii).tolist())
+                pb.extend((s + kk).tolist())
+            pa = np.asarray(pa, np.int64)
+            pb = np.asarray(pb, np.int64)
+        with span("llr.prefilter.editdist"):
+            dists = _edit_distances(filtered, pa, pb, device) if len(pa) else np.zeros(0, np.int32)
 
-    # ---- build MSA jobs --------------------------------------------------
-    jobs = []  # (strand, sub_reads, sub_quals)
-    for strand, reads, quals, off, npairs in infos:
-        ii, kk = np.triu_indices(len(reads), k=1)
-        close = dists[off : off + npairs] < EDIT_PREFILTER_THRESHOLD
-        keep = np.unique(np.concatenate([ii[close], kk[close]]))
-        if len(keep) == 0:
-            continue  # erasure strand: LLRs stay zero
-        jobs.append((strand, [reads[i] for i in keep], [quals[i] for i in keep]))
-    timings["edit_prefilter"] = timings.get("edit_prefilter", 0.0) + (time.time() - t0)
+        # ---- build MSA jobs ----------------------------------------------
+        with span("llr.prefilter.keep", kind=HOST):
+            jobs = []  # (strand, sub_reads, sub_quals)
+            for strand, reads, quals, off, npairs in infos:
+                ii, kk = np.triu_indices(len(reads), k=1)
+                close = dists[off : off + npairs] < EDIT_PREFILTER_THRESHOLD
+                keep = np.unique(np.concatenate([ii[close], kk[close]]))
+                if len(keep) == 0:
+                    continue  # erasure strand: LLRs stay zero
+                jobs.append((strand, [reads[i] for i in keep], [quals[i] for i in keep]))
     if not jobs:
         return
 
     # ---- cross-cluster batched MSA + counting ----------------------------
     aligned = align_clusters([reads for _, reads, _ in jobs], device=device, timings=timings)
-    t0 = time.time()
-    for (strand, _, subq), rows_out in zip(jobs, aligned):
-        out[strand] = _aligned_llr(rows_out, subq, mag)
-    timings["counting"] = timings.get("counting", 0.0) + (time.time() - t0)
+    with span("llr.counting", kind=HOST, timings=timings, key="counting"):
+        for (strand, _, subq), rows_out in zip(jobs, aligned):
+            out[strand] = _aligned_llr(rows_out, subq, mag)

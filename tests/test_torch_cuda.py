@@ -501,3 +501,105 @@ def test_sharded_cuda_decoder_one_rank_nccl(dev, tmp_path):
     finally:
         dist.destroy_process_group()
     _same_bp(got, bp_cuda.bp_decode_blocked(code, torch.from_numpy(llr).to(dev), 200))
+
+
+def _innermost(ranges, t):
+    """The name of the shortest range of ``ranges`` ({name: (starts, ends)},
+    each sorted) that holds host time ``t``, or None."""
+    import bisect
+
+    best = (float("inf"), None)
+    for name, (starts, ends) in ranges.items():
+        k = bisect.bisect_right(starts, t) - 1
+        if k >= 0 and t <= ends[k]:
+            best = min(best, (ends[k] - starts[k], name))
+    return best[1]
+
+
+def test_trial_spans_on_the_card(dev, tmp_path, capsys):
+    """One warm trial of 72,000 reads (``trace_trial.smoke_trial``) under
+    the profiler: no kernel is launched inside a ``kind="host"`` span of
+    its record; ``msa.k2``'s event-timed seconds lie within 10 % of the
+    trace's summed K2 kernel time. The same trial again under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing
+    operations the runtime reports, with the explicit synchronizes it does
+    not report, are the ``waits`` the record counts."""
+    import json
+    import os
+    import sys
+    import warnings
+
+    from dna_ldpc_tpu_torch.pipeline.decode import TrialConfig, decode_trial
+    from dna_ldpc_tpu_torch.utils import profiling
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from trace_trial import smoke_trial
+
+    cws, reads, quals = smoke_trial()
+    decode_trial(reads, quals, cws, TrialConfig())  # warm: kernel builds, tables, allocator
+    with profiling.device_trace(str(tmp_path)):
+        res = decode_trial(reads, quals, cws, TrialConfig())
+    assert res.fail_final == []
+    record = profiling.recent_trials()[-1]
+    kinds = {s["name"]: s["kind"] for s in record}
+    with open(os.path.join(tmp_path, profiling.TRACE_FILE)) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ranges: dict = {}
+    for e in sorted((e for e in events if e.get("cat") == "user_annotation" and e["name"] in kinds),
+                    key=lambda e: e["ts"]):
+        starts, ends = ranges.setdefault(e["name"], ([], []))
+        starts.append(e["ts"])
+        ends.append(e["ts"] + e["dur"])
+    assert sum(len(s) for s, _ in ranges.values()) == len(record)
+    # the call that launched each kernel: the CUDA runtime's, or the CUDA driver API's for some kernels
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    in_host, unmatched = {}, 0
+    for e in kernels:
+        t = launched.get(e["args"].get("correlation"))
+        if t is None:
+            unmatched += 1
+            continue
+        name = _innermost(ranges, t)
+        if name is not None and kinds[name] == profiling.HOST:
+            in_host.setdefault(name, set()).add(e["name"][:60])
+    assert not in_host, in_host
+    assert unmatched <= len(kernels) // 100, (unmatched, len(kernels))
+
+    k2_events = sum(s["device_s"] for s in record if s["name"] == "msa.k2")
+    k2_trace = sum(e["dur"] for e in kernels if "pairhmm" in e["name"]) / 1e6
+    cons_events = sum(s["device_s"] or 0.0 for s in record if s["name"] == "msa.consistency")
+    with capsys.disabled():
+        print(f"\n{len(kernels)} kernels ({unmatched} without a launch call in the trace), {len(record)} spans; msa.k2 events {k2_events:.6f} s, trace {k2_trace:.6f} s; "
+              f"msa.consistency events {cons_events:.6f} s")
+    assert abs(k2_events - k2_trace) <= 0.1 * k2_trace
+
+    explicit = []
+    sync = torch.cuda.synchronize
+
+    def counted_sync(*args, **kwargs):
+        explicit.append(1)
+        return sync(*args, **kwargs)
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize = counted_sync
+            try:
+                decode_trial(reads, quals, cws, TrialConfig())
+            finally:
+                torch.cuda.synchronize = sync
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    waits = sum(s["counts"].get("waits", 0) for s in profiling.recent_trials()[-1])
+    sites: dict = {}
+    for w in syncs:
+        key = f"{os.path.basename(w.filename)}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+    with capsys.disabled():
+        print(f"waits counted {waits}; the runtime reported {len(syncs)} synchronizing operations, plus {len(explicit)} "
+              f"explicit synchronizes; by site: {sorted(sites.items(), key=lambda kv: -kv[1])}")
+    assert waits == len(syncs) + len(explicit)
