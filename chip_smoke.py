@@ -122,7 +122,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     rtol = 1e-4 of each other, the clusters the routing passes through or
     sends to the host loop bit-equal; the clusters per bucket, the host
     loop's share and the walls of both calls beside the card's name and
-    power limit.
+    power limit; then the consistency kernel alone at the trial's shapes
+    (buckets 4, 8 and 12 with 3, 5 and 9 reads of 152 nt, 65 clusters,
+    L = 160, 2 iterations; K2 posteriors): ``assemble_transform`` and the
+    kernel's device time beside the bound (``transform_work`` at the f32
+    peak) and the plain version (the block product through ``torch.bmm``
+    that the port ran before the kernel, also ``library_ms``), within one
+    bf16 step of it.
 
 Phases 10-12 and 17 print the K2 launches they made. Phases 2, 3, 7 and 9c
 print each kernel's time beside its bound at the
@@ -136,7 +142,9 @@ The line before the last is a JSON object with each kernel's launches on
 the trial of phase 5 (K1: plus the waterfall of phase 9a and the sharded
 decodes of phase 16, its subprocesses' included), error against
 its twin, time beside the twin's and beside its bound, and
-``library_ms`` (null: no single PyTorch call computes any of the three).
+``library_ms`` (null for K1, K2 and ``merge_dp``: no single PyTorch call
+computes them; the consistency kernel's is its plain version's block
+product through ``torch.bmm``, at bucket 8).
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -308,6 +316,78 @@ def _merge_waves(rng, dev, nb: int, C: int, Lmax: int, consistency_iters: int = 
         step = (Pblock, cpos, width, mA, mB, live, Cmax, Lmax)
         yield k, (Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, Lmax), step
         cpos, width, _, _ = device_msa._merge_step(*step)
+
+
+# the consistency kernel alone (phase 17): (bucket, reads a cluster) of the trial's device MSA,
+# clusters per call (what the byte budget gave the block product at bucket 8), reads of the oligos' 152 nt
+CONSISTENCY_SHAPES, CONSISTENCY_CALL_CLUSTERS, CONSISTENCY_READ_NT = ((4, 3), (8, 5), (12, 9)), 65, 152
+
+
+def _consistency_times(dev, iters: int = 2) -> dict:
+    """The consistency transform at the trial's shapes (CONSISTENCY_SHAPES,
+    L = 160, K2 posteriors of reads of one strand): milliseconds per
+    ``assemble_transform`` call (the kernel's main-path entry, with the gap
+    row's zero fill and the work list's upload) and the kernel's device
+    time alone (``torch.profiler``); the plain version, which is the block
+    product through ``torch.bmm`` that the port ran before the kernel, as
+    ``plain_ms`` (also ``library_ms``); the bound (``transform_work`` at
+    the reads' true lengths, f32 FLOPs at 67 TFLOP/s or bytes at 3.35 TB/s)
+    and the share; the largest bf16 step between the kernel and the plain
+    version. Checkouts whose ``assemble_transform`` takes no lengths give
+    their own transform's time under the same names."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import consistency, device_msa
+    from dna_ldpc_tpu_torch.ops.msa.align import cluster_pairs
+    from dna_ldpc_tpu_torch.ops.msa.pairhmm import k2_posteriors
+    from dna_ldpc_tpu_torch.utils import roofline
+
+    takes_lengths = "lengths" in inspect.signature(device_msa.assemble_transform).parameters
+    plain = getattr(consistency, "consistency_core_ref", consistency.consistency_core)
+    rng, L, C, out = np.random.default_rng(15), 160, CONSISTENCY_CALL_CLUSTERS, {}
+    for nb, n in CONSISTENCY_SHAPES:
+        clusters = [_strand_reads(rng, n, CONSISTENCY_READ_NT) for _ in range(C)]
+        prs, npair = cluster_pairs(n), nb * (nb - 1) // 2
+        posts, _ = k2_posteriors([cl[i] for cl in clusters for i, _ in prs],
+                                 [cl[j] for cl in clusters for _, j in prs], L, dev)
+        slot = {pair: s for s, pair in enumerate(cluster_pairs(nb))}
+        ids, mask = np.zeros(C * npair, np.int64), np.zeros(C * npair, bool)
+        lens = np.zeros((C, nb), np.int32)
+        for c, cl in enumerate(clusters):
+            lens[c, :n] = [len(q) for q in cl]
+            for p, pair in enumerate(prs):
+                ids[c * npair + slot[pair]], mask[c * npair + slot[pair]] = c * len(prs) + p, True
+        ids_t, mask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+        inv_t = torch.full((C,), 1.0 / n, device=dev)
+        kw = {"lengths": lens} if takes_lengths else {}
+
+        def kernel():
+            return device_msa.assemble_transform(posts, ids_t, mask_t, inv_t, nb, iters, C, L, **kw)
+
+        pm = torch.where(mask_t[:, None, None], posts[ids_t], 0).float().view(C, npair, L, L)
+        got = kernel()[:, :, :L, :L].contiguous()
+        want = plain(pm, inv_t, nb, iters).to(torch.bfloat16)
+        ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max().item()
+        ms = _cuda_ms(kernel, 5)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            kernel()
+            torch.cuda.synchronize()
+        kernel_device_ms = sum(e.device_time_total for e in prof.key_averages()
+                               if "consistency_kernel" in e.key) / 1e3
+        plain_ms = _cuda_ms(lambda: plain(pm, inv_t, nb, iters), 3)
+        flops, nbytes = map(sum, zip(*(consistency.transform_work([len(q) for q in cl], iters) for cl in clusters)))
+        bound, by = roofline.bound_ms(nbytes, flops)
+        out[f"consistency_b{nb}_n{n}"] = {
+            "clusters": C, "L": L, "ms": ms, "kernel_device_ms": kernel_device_ms, "plain_ms": plain_ms,
+            "library_ms": plain_ms, "bound_ms": bound, "bound_by": by, "share_pct": 100 * bound / ms,
+            "kernel_share_pct": 100 * bound / kernel_device_ms if kernel_device_ms else None,
+            "max_bf16_steps": ulps,
+        }
+        del posts, pm, got, want
+    return out
 
 
 def _coverage_llrs(rng, cw, cov_mean: float, eps: float, dev):
@@ -987,7 +1067,7 @@ def main() -> int:
     from dna_ldpc_tpu_torch.models.rs_ldpc import dna_storage_pchk
     from dna_ldpc_tpu_torch.ops import bp_cuda
     from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
-    from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, pairhmm_cuda
+    from dna_ldpc_tpu_torch.ops.msa import consistency, device_msa, mea_cuda, pairhmm_cuda
     from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
     from dna_ldpc_tpu_torch.pipeline import decode as trial_decode
     from dna_ldpc_tpu_torch.pipeline.report import parse_result
@@ -1146,6 +1226,7 @@ def main() -> int:
         bp_cuda.launches = 0
         pairhmm_cuda.launches = pairhmm_cuda.pairs = 0
         mea_cuda.merge_launches = 0
+        consistency.launches = 0
         msa_align.msa_clusters = msa_align.fallback_clusters = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1153,7 +1234,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {"bp_blocked": bp_cuda.launches, "pairhmm": pairhmm_cuda.launches,
-                    "merge_dp": mea_cuda.merge_launches}
+                    "merge_dp": mea_cuda.merge_launches, "consistency": consistency.launches}
         return res, llr_tables[-1], launches, msa_align.msa_clusters, msa_align.fallback_clusters, wall
 
     res, llr_dev, launches, n_msa, n_fb, wall = run_trial()
@@ -1165,7 +1246,7 @@ def main() -> int:
     print("[5] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in res.phase_times.items()))
     if res.fail_final or not np.array_equal(res.decoded_bits, cws):
         raise AssertionError(f"trial not recovered: fail_final {res.fail_final}")
-    if min(launches[name] for name in ("bp_blocked", "pairhmm", "merge_dp")) == 0:
+    if min(launches[name] for name in ("bp_blocked", "pairhmm", "merge_dp", "consistency")) == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if n_fb > 0.01 * n_msa:
         raise AssertionError(f"{n_fb} of {n_msa} MSA clusters fell back to the host aligner")
@@ -1297,6 +1378,16 @@ def main() -> int:
     # ---- 17. the batched consistency transform -------------------------------
     t17 = time.time()
     _consistency_phase(dev, msa_clusters, smi)
+    cons = _consistency_times(dev)
+    for name, row in cons.items():
+        print(f"[17] the consistency kernel alone, {name} ({row['clusters']} clusters, L {row['L']}, 2 iterations): "
+              f"assemble_transform {row['ms']:.4f} ms, the kernel's device time {row['kernel_device_ms']:.4f} ms; "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), share {row['share_pct']:.1f} % of the call, "
+              f"{row['kernel_share_pct']:.1f} % of the kernel; the plain version (the block product through "
+              f"torch.bmm, also library_ms) {row['plain_ms']:.3f} ms; at most {row['max_bf16_steps']} bf16 steps "
+              f"from it ({smi})")
+        if row["max_bf16_steps"] > 1:
+            raise AssertionError(f"{name}: the consistency kernel is {row['max_bf16_steps']} bf16 steps off")
     print(f"[17] phase 17 {time.time() - t17:.2f} s")
 
     kernels = [
@@ -1312,6 +1403,10 @@ def main() -> int:
         {"name": "merge_dp", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/mea_dp.cu",
          "replaces": "dna_ldpc_tpu/ops/msa/device_msa.py:175", "launches": launches["merge_dp"],
          "max_abs_err": float(merge_err), **merge_stats, "library_ms": None},
+        {"name": "consistency", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/consistency.cu",
+         "replaces": None, "launches": launches["consistency"],
+         **{k: v for k, v in cons["consistency_b8_n5"].items() if k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_device_ms", "max_bf16_steps")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -93,6 +93,9 @@ def load() -> ctypes.CDLL:
             lib.pairhmm_launch.restype = ci
             lib.merge_dp_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
             lib.merge_dp_launch.restype = ci
+            cl = ctypes.c_longlong
+            lib.consistency_launch.argtypes = [vp, vp, ci, cl, ci, vp, ci, cl, ci, vp, vp, ci, vp, ci, vp]
+            lib.consistency_launch.restype = ci
             lib.dna_cuda_error_string.argtypes = [ci]
             lib.dna_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -607,9 +607,11 @@ def _align_clusters_device(
                     ids = np.zeros(len(batch) * npair, np.int64)
                     mask = np.zeros(len(batch) * npair, bool)
                     inv_n = np.ones(len(batch), np.float32)
+                    lengths = np.zeros((len(batch), nb), np.int32)
                     for bi, c in enumerate(batch):
                         n = len(clusters[c])
                         inv_n[bi] = 1.0 / n
+                        lengths[bi, :n] = [len(q) for q in clusters[c]]
                         for pi, pair in enumerate(cluster_pairs(n)):
                             sl = bi * npair + slot_of[pair]
                             ids[sl] = pair_span[c][0] + pi
@@ -618,7 +620,9 @@ def _align_clusters_device(
                     ids_t, mask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
                     inv_n_t = torch.as_tensor(inv_n, device=dev)
                     wait(dev, 3)
-                    P = assemble_transform(posts, ids_t, mask_t, inv_n_t, nb, consistency_iters, len(batch), Lmax)
+                    P = assemble_transform(
+                        posts, ids_t, mask_t, inv_n_t, nb, consistency_iters, len(batch), Lmax, lengths
+                    )
                     if consistency_iters and nb >= 3:
                         _count_transform([clusters[c] for c in batch], consistency_iters)
                     _sync(dev)
@@ -730,7 +734,7 @@ def _align_clusters_fused(
             for n in sorted(by_n):
                 members = by_n[n]
                 npair = n * (n - 1) // 2
-                # block tensor, its product and the updated copy, f32
+                # the plain version's block tensor, its product and the updated copy, f32
                 cap = max(1, pairhmm.BUDGET_BYTES // (4 * 4 * n * n * Lmax * Lmax))
                 for blo in range(0, len(members), cap):
                     batch = members[blo : blo + cap]
@@ -739,7 +743,8 @@ def _align_clusters_fused(
                     )
                     mats = posts[idx].to(torch.float32).view(len(batch), npair, Lmax, Lmax)
                     inv_n = torch.full((len(batch),), 1.0 / n, dtype=torch.float32, device=dev)
-                    res = consistency_core(mats, inv_n, n, consistency_iters).cpu().numpy()
+                    lengths = [[len(q) for q in clusters[c]] for c in batch]
+                    res = consistency_core(mats, inv_n, n, consistency_iters, lengths).cpu().numpy()
                     wait(dev, 2)  # the index upload, the download
                     _count_transform([clusters[c] for c in batch], consistency_iters)
                     for bi, c in enumerate(batch):

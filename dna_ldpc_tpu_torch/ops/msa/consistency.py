@@ -13,12 +13,23 @@ equals the reference's sum over Z != X,Y because the diagonal blocks are
 zero — so each iteration is one batched [n*L, n*L] matrix product, in
 full float32 (TF32 off), matching the JAX package's HIGHEST precision.
 
+On the card the transform is one hand-written CUDA kernel per iteration
+(``csrc/consistency.cu``, launched by ``transform_rounds``): it reads each
+pair's true box from the pair tensor itself (A_iz for z < i as A_zi
+transposed), sums only over the other true members z, and stops each z at
+its read's length — no block tensor, no pad members, no zero diagonal
+blocks, no lower triangle. The host hands it the members' lengths
+(``lengths`` [C, nb], 0 for a pad member) and a work list of output tiles
+(``work_list``), in one pinned, non-blocking upload. ``consistency_core_ref``
+keeps the block product above as the plain version: CPU tensors take it.
+
 ``consistency_clusters`` is the public batched entry: numpy posteriors of
 many clusters in, transformed numpy posteriors out, routed as the JAX
 function routes them — sizes bucketed to ``N_BUCKETS`` (zero member
-blocks are inert; the divide uses each cluster's true n), the block
-product on ``device``, and sizes above the top bucket or bucket groups
-too small to batch through the host loop ``_consistency_host``. Left out
+blocks are inert; the divide uses each cluster's true n), the transform
+on ``device`` given each cluster's read lengths, and sizes above the top
+bucket or bucket groups too small to batch through the host loop
+``_consistency_host``. Left out
 as TPU workarounds: padding the cluster axis to a full chunk (one
 compiled program per bucket; zero blocks give the same results) and the
 sparse top-k transport (``top_k``, ``cluster_sparse``).
@@ -30,20 +41,49 @@ import numpy as np
 import torch
 
 from ...utils.device import DEFAULT_DEVICE, full_f32_matmul, require_device
-from ...utils.profiling import device_time, wait
+from ...utils.profiling import count, device_time, wait
+from .mea_cuda import _one_device
 from .pairhmm import MIN_SPARSE_PROB
 
 N_BUCKETS = (3, 4, 6, 8, 12, 16, 24, 32)
 
+launches = 0  # consistency_kernel launches since import (main-path evidence)
+TILE = 160  # the kernel's output tile edge (csrc/consistency.cu); a longer box takes several tiles
 
-def consistency_core(pair_mats: torch.Tensor, inv_n: torch.Tensor, n: int, iters: int) -> torch.Tensor:
+
+def consistency_core(pair_mats: torch.Tensor, inv_n: torch.Tensor, n: int, iters: int, lengths=None) -> torch.Tensor:
     """pair_mats: [C, n*(n-1)/2, L, L] float32 i<j pair posteriors of C
-    clusters of n sequences (cluster_pairs order, zero padded); inv_n: [C]
-    float32 1/n. Returns the transformed pairs in the same layout. On the
-    card, the work between the index uploads and the return is event-timed
-    into the innermost span while a profiler records."""
+    clusters of up to n sequences (cluster_pairs(n) slots, zero padded);
+    inv_n: [C] float32 1/n_true; ``lengths``: host ints [C, n], the
+    members' read lengths, 0 for a pad member (None: n members of length
+    L). Entries outside each pair's true box count as zero and come back
+    zero. Returns the transformed pairs in the same layout (``iters`` = 0:
+    a copy of the input): the kernel on CUDA tensors
+    (``transform_rounds``), ``consistency_core_ref`` on CPU tensors."""
+    dev = _one_device(pair_mats, inv_n)
+    if dev.type == "cpu":
+        return consistency_core_ref(pair_mats, inv_n, n, iters, lengths)
+    if not iters:
+        return pair_mats.clone()
+    if pair_mats.dtype != torch.float32:
+        raise ValueError("pair_mats must be float32")
+    out = torch.zeros_like(pair_mats)
+    transform_rounds(pair_mats.contiguous(), None, out, inv_n, lengths, n, iters)
+    return out
+
+
+def consistency_core_ref(pair_mats, inv_n, n: int, iters: int, lengths=None) -> torch.Tensor:
+    """Plain torch version of ``consistency_core``: the clusters stacked
+    into a block tensor A[c, i, j] (A[c,i,i] = 0, A[c,j,i] = A[c,i,j]^T),
+    each iteration one batched [n*L, n*L] product in full float32 (module
+    docstring). With ``lengths``, the entries outside the true boxes are
+    zeroed first, which changes nothing where they are zero already. On
+    the card, the work between the index uploads and the return is
+    event-timed into the innermost span while a profiler records."""
     C, npair, L, _ = pair_mats.shape
     dev = pair_mats.device
+    if lengths is not None:
+        pair_mats = torch.where(_box_mask(lengths, n, L).to(dev), pair_mats, 0.0)
     ii, jj = np.triu_indices(n, k=1)
     ii = torch.as_tensor(ii, device=dev)
     jj = torch.as_tensor(jj, device=dev)
@@ -60,6 +100,107 @@ def consistency_core(pair_mats: torch.Tensor, inv_n: torch.Tensor, n: int, iters
                 S = torch.bmm(Am, Am).view(C, n, L, n, L).permute(0, 1, 3, 2, 4)
                 A = torch.where(A < MIN_SPARSE_PROB, 0.0, (2.0 * A + S) * scale)
         return A[:, ii, jj]
+
+
+def _lengths(lengths, C: int, nb: int, L: int) -> np.ndarray:
+    """``lengths`` as int32 [C, nb] (None: every member of length L),
+    checked against the pair tensor's width L."""
+    lens = np.full((C, nb), L, np.int32) if lengths is None else np.asarray(lengths, np.int32)
+    if lens.shape != (C, nb) or lens.min(initial=0) < 0 or lens.max(initial=0) > L:
+        raise ValueError(f"lengths must be [C={C}, nb={nb}] in 0..{L}, got {lens.shape}")
+    return lens
+
+
+def _box_mask(lengths, nb: int, L: int) -> torch.Tensor:
+    """[C, npair, L, L] bool: inside pair (i, j)'s true box L_i x L_j."""
+    lens = torch.as_tensor(np.asarray(lengths, np.int64))
+    ii, jj = np.triu_indices(nb, k=1)
+    pos = torch.arange(L)
+    rows = pos < lens[:, ii, None]
+    cols = pos < lens[:, jj, None]
+    return rows[..., :, None] & cols[..., None, :]
+
+
+def cluster_lengths(posts: list[np.ndarray], n: int) -> list[int]:
+    """The read lengths of a cluster of n from its pair posteriors in
+    cluster_pairs order (pairs (0, 1) .. (0, n-1) come first)."""
+    return [posts[0].shape[0]] + [posts[s - 1].shape[1] for s in range(1, n)]
+
+
+def work_list(lengths: np.ndarray, tile: int = TILE) -> np.ndarray:
+    """The kernel's grid for clusters whose members have read lengths
+    ``lengths`` [C, nb] (0: no member): one int32 row (c, i | j << 16,
+    ti | tj << 16) per tile (ti, tj) of tile x tile that covers the true
+    box L_i x L_j of each pair i < j of members, cluster-major, pairs in
+    cluster_pairs(nb) order, tiles row-major."""
+    lens = np.asarray(lengths, np.int64)
+    C, nb = lens.shape
+    ii, jj = np.triu_indices(nb, k=1)
+    ti, tj = -(-lens[:, ii] // tile), -(-lens[:, jj] // tile)  # tiles a side, 0 without a member
+    per = (ti * tj).ravel()
+    item = np.repeat(np.arange(per.size), per)  # (c, slot) of each tile
+    t = np.arange(item.size) - np.repeat(np.cumsum(per) - per, per)
+    tj_of = tj.ravel()[item]
+    c, slot = np.divmod(item, len(ii))
+    return np.stack([c, ii[slot] | jj[slot] << 16, t // tj_of | (t % tj_of) << 16], 1).astype(np.int32)
+
+
+def transform_rounds(src, ids, dst, inv_n, lengths, nb: int, iters: int) -> None:
+    """``iters`` launches of the consistency kernel (``csrc/consistency.cu``)
+    over C clusters of bucket ``nb`` with members' read lengths ``lengths``
+    (host int32 [C, nb]). Round one reads ``src``: float32 pairs
+    [C, npair, L, L] in cluster_pairs(nb) slots, or with ``ids`` (int64
+    [C * npair] on the card) the bf16 posteriors src[ids[c * npair + slot]]
+    of a pair tensor [P, L, L]; each later round reads the float32 iterate
+    of the one before; the last writes the true boxes of ``dst`` (a
+    [C, npair, L, L] view, float32 or bf16, rows and pairs strided; the
+    rest of it is left as it is). The lengths and the work list reach the
+    card in one pinned, non-blocking upload; the launches are event-timed
+    into the innermost span while a profiler records, and counted on it as
+    ``launches``."""
+    global launches
+    from ... import cuda_lib
+
+    dev = src.device
+    C, L = inv_n.shape[0], src.shape[-1]
+    npair = nb * (nb - 1) // 2
+    lengths = _lengths(lengths, C, nb, L)
+    if dst.shape != (C, npair, L, L) or dst.stride(3) != 1 or dst.stride(0) != npair * dst.stride(1):
+        raise ValueError(f"dst must be a [C, npair, L, L] = {(C, npair, L, L)} view with unit column stride")
+    if ids is None:
+        if src.dtype != torch.float32 or src.shape != (C, npair, L, L) or not src.is_contiguous():
+            raise ValueError("src must be contiguous float32 [C, npair, L, L] without ids")
+        src_pair, src_row = src.stride(1), src.stride(2)
+    else:
+        if src.dtype != torch.bfloat16 or src.dim() != 3 or not src.is_contiguous():
+            raise ValueError("src must be contiguous bf16 [P, L, L] with ids")
+        if ids.dtype != torch.int64 or ids.shape != (C * npair,) or not ids.is_contiguous():
+            raise ValueError(f"ids must be contiguous int64 [{C * npair}]")
+        src_pair, src_row = src.stride(0), src.stride(1)
+    if dst.dtype not in (torch.float32, torch.bfloat16) or inv_n.dtype != torch.float32:
+        raise ValueError("dst must be float32 or bf16, inv_n float32")
+    work = work_list(lengths)
+    meta = torch.from_numpy(np.concatenate([lengths.ravel(), work.ravel()]).astype(np.int32))
+    meta = meta.pin_memory().to(dev, non_blocking=True)
+    lens_t, work_t = meta[: C * nb], meta[C * nb :]
+    tmp = [torch.empty((C, npair, L, L), dtype=torch.float32, device=dev) for _ in range(min(iters - 1, 2))]
+    inv_n = inv_n.contiguous()
+    lib = cuda_lib.load()
+    cur, cur_ids, cur_pair, cur_row = src, ids, src_pair, src_row
+    with torch.cuda.device(dev), device_time(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for r in range(iters):
+            out = dst if r == iters - 1 else tmp[r % 2]
+            status = lib.consistency_launch(
+                cur.data_ptr(), None if cur_ids is None else cur_ids.data_ptr(), int(cur.dtype == torch.bfloat16),
+                cur_pair, cur_row, out.data_ptr(), int(out.dtype == torch.bfloat16), out.stride(1), out.stride(2),
+                lens_t.data_ptr(), work_t.data_ptr(), len(work), inv_n.data_ptr(), nb, stream,
+            )
+            cuda_lib.check(status, "consistency_launch")
+            cur, cur_ids, cur_pair, cur_row = out, None, out.stride(1), out.stride(2)
+    if len(work):
+        launches += iters
+        count("launches", iters)
 
 
 def transform_work(lengths, iters: int) -> tuple[int, int]:
@@ -108,7 +249,7 @@ def consistency_clusters(
     device=DEFAULT_DEVICE,
 ) -> list[list[np.ndarray]]:
     """Apply ``iters`` consistency iterations to every cluster's pair
-    posteriors, the block products on ``device``.
+    posteriors, the batched transform (``consistency_core``) on ``device``.
 
     ``cluster_posts[c]`` holds cluster c's C(n_c, 2) posteriors in
     cluster_pairs order, with per-pair shapes [len_i, len_j]. Clusters
@@ -151,13 +292,15 @@ def consistency_clusters(
             batch = members[lo : lo + chunk]
             stacked = np.zeros((len(batch), npair_b, L, L), np.float32)
             inv_n = np.empty(len(batch), np.float32)
+            lengths = np.zeros((len(batch), nb), np.int32)
             for bi, (c, n) in enumerate(batch):
                 inv_n[bi] = 1.0 / n
+                lengths[bi, :n] = cluster_lengths(cluster_posts[c], n)
                 pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
                 for (i, j), mat in zip(pairs, cluster_posts[c]):
                     stacked[bi, slot_of[(i, j)], : mat.shape[0], : mat.shape[1]] = mat
             trans = consistency_core(
-                torch.from_numpy(stacked).to(dev), torch.from_numpy(inv_n).to(dev), nb, iters
+                torch.from_numpy(stacked).to(dev), torch.from_numpy(inv_n).to(dev), nb, iters, lengths
             ).cpu().numpy()
             for bi, (c, n) in enumerate(batch):
                 pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]

@@ -21,7 +21,10 @@ Lmax = 160 and on one launch of the trial's size;
 the merge (BuildPost + MEA DP + walk: ``mea_cuda.merge_walk``) on 512
 clusters of 8 reads at the first and the last progressive wave and on 64
 clusters of 32 reads at a refinement bipartition of 16 reads a side (with
-its bound, as the others' in ``chip_smoke.py``). Then
+its bound, as the others' in ``chip_smoke.py``); the consistency
+transform at the trial's buckets 4, 8 and 12 (``chip_smoke.py`` phase 17:
+the kernel's call and device time, the plain block product, the bound;
+a checkout without the kernel times its own transform there). Then
 ``chip_smoke.py``'s phase-5 trial: one warm-up ``decode_trial``, then the
 device MSA and the ``DNA_LDPC_DEVICE_MSA=0`` flow twice in turns, each
 wall on the host clock ending in a synchronize.
@@ -40,7 +43,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from chip_smoke import K2_TRIAL_PAIRS, _coverage_llrs, _cuda_ms, _merge_waves, _noisy_pairs  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    K2_TRIAL_PAIRS, _consistency_times, _coverage_llrs, _cuda_ms, _merge_waves, _noisy_pairs,
+)
 
 
 def _card() -> str:
@@ -165,6 +170,8 @@ def measure(repo: str) -> dict:
         "k2_512pairs_L160": _cuda_ms(lambda: k2(*[a[:512] for a in big], 160), 10),
         f"k2_{K2_TRIAL_PAIRS}pairs_L160": _cuda_ms(lambda: k2(*big, 160), 3),
         **merge_times(dev),
+        **{name: {k: row[k] for k in ("ms", "kernel_device_ms", "plain_ms", "bound_ms", "share_pct")}
+           for name, row in _consistency_times(dev).items()},
         **trial_walls(),
     }
 
@@ -173,7 +180,7 @@ def ptxas() -> None:
     """Registers, shared memory and spills of every kernel of the port."""
     from dna_ldpc_tpu_torch import cuda_lib
 
-    for name in ("bp_blocked.cu", "pairhmm.cu", "mea_dp.cu"):
+    for name in ("bp_blocked.cu", "pairhmm.cu", "mea_dp.cu", "consistency.cu"):
         proc = subprocess.run(
             [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
              os.path.join(HERE, "dna_ldpc_tpu_torch", "csrc", name)], capture_output=True, text=True)

@@ -104,3 +104,168 @@ def test_refine_mask_table_matches_jax(refine_iters, seed):
         want = j_dm.refine_mask_table(n, refine_iters, seed)
         assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The consistency kernel's host side: lengths, work list, plain version with
+# lengths, and a numpy model of the kernel's addressing (csrc/consistency.cu)
+# ---------------------------------------------------------------------------
+
+
+def _bucket_lengths(rng, sizes, nb, lo=1, hi=160, pad_clusters=0):
+    """[C, nb] read lengths of clusters of ``sizes`` reads in bucket nb
+    (pad members 0), plus ``pad_clusters`` clusters without members."""
+    lens = np.zeros((len(sizes) + pad_clusters, nb), np.int32)
+    for c, n in enumerate(sizes):
+        lens[c, :n] = rng.integers(lo, hi + 1, n)
+    return lens
+
+
+def _padded_pairs(rng, lens, L, garbage=False):
+    """[C, npair, L, L] f32 pair posteriors in bucket slots: sparse values,
+    some placed around MIN_SPARSE_PROB, zero outside each true box (random
+    values there with ``garbage``)."""
+    C, nb = lens.shape
+    npair = nb * (nb - 1) // 2
+    x = rng.random((C, npair, L, L)) * (rng.random((C, npair, L, L)) < 0.3)
+    near = rng.random((C, npair, L, L)) < 0.05
+    x = np.where(near, t_cons.MIN_SPARSE_PROB * rng.choice([0.999, 1.0, 1.001], x.shape), x).astype(np.float32)
+    box = t_cons._box_mask(lens, nb, L).numpy()
+    return np.where(box | garbage, x, 0.0).astype(np.float32)
+
+
+WORK_CASES = {
+    "bucket8_n5_with_pad_cluster": ((5, 3, 8, 5), 8, 1, 160, 160, 2),
+    "bucket4_n3": ((3, 4, 3), 4, 140, 156, 160, 0),
+    "bucket12_n9_short_reads": ((9, 12), 12, 1, 7, 160, 1),
+    "multi_tile_L256": ((3, 5), 8, 150, 256, 160, 0),
+    "small_tiles": ((4, 3, 6), 8, 1, 30, 7, 1),
+}
+
+
+@pytest.mark.parametrize("case", WORK_CASES)
+def test_work_list_covers_each_true_box_once(case):
+    sizes, nb, lo, hi, tile, pads = WORK_CASES[case]
+    lens = _bucket_lengths(np.random.default_rng(len(case)), sizes, nb, lo, hi, pads)
+    work = t_cons.work_list(lens, tile)
+    assert work.dtype == np.int32 and work.shape[1] == 3
+    c, i, j = work[:, 0], work[:, 1] & 0xFFFF, work[:, 1] >> 16
+    ti, tj = work[:, 2] & 0xFFFF, work[:, 2] >> 16
+    assert (np.diff(c) >= 0).all()  # cluster-major
+    assert (i < j).all() and (lens[c, i] > 0).all() and (lens[c, j] > 0).all()
+    assert (ti * tile < lens[c, i]).all() and (tj * tile < lens[c, j]).all()
+    covered = {}
+    for cc, a, b, r, s in zip(c, i, j, ti, tj):
+        key = (int(cc), int(a), int(b))
+        covered[key] = covered.get(key, 0) + min(tile, lens[cc, a] - r * tile) * min(tile, lens[cc, b] - s * tile)
+    want = {(cc, a, b): int(lens[cc, a]) * int(lens[cc, b]) for cc in range(len(lens))
+            for a, b in cluster_pairs(nb) if lens[cc, a] and lens[cc, b]}
+    assert covered == want
+    assert len({tuple(r) for r in work}) == len(work)  # no tile twice
+
+
+@pytest.mark.parametrize("n", [3, 5, 9, 32])
+def test_cluster_lengths_from_pair_shapes(n):
+    rng = np.random.default_rng(n)
+    lens = rng.integers(1, 40, n)
+    posts = [np.zeros((lens[i], lens[j]), np.float32) for i, j in cluster_pairs(n)]
+    assert t_cons.cluster_lengths(posts, n) == lens.tolist()
+
+
+@pytest.mark.parametrize("nb,sizes,iters", [(4, (3, 4, 3), 2), (8, (5, 8, 6), 2), (8, (5, 7), 1), (12, (9,), 2)])
+def test_plain_version_given_lengths_is_the_bucket_padded_result(nb, sizes, iters):
+    """Given the true lengths, the plain version equals today's
+    bucket-padded product bit for bit (the pads are zero), and ignores
+    whatever lies outside the true boxes."""
+    rng = np.random.default_rng(nb + iters)
+    L = 24
+    lens = _bucket_lengths(rng, sizes, nb, 1, L, pad_clusters=1)
+    x = _padded_pairs(rng, lens, L)
+    inv = np.array([1.0 / n for n in sizes] + [1.0], np.float32)
+    want = t_cons.consistency_core(torch.from_numpy(x), torch.from_numpy(inv), nb, iters)
+    got = t_cons.consistency_core(torch.from_numpy(x), torch.from_numpy(inv), nb, iters, lens)
+    assert torch.equal(got, want)
+    dirty = np.where(t_cons._box_mask(lens, nb, L).numpy(), x, rng.random(x.shape)).astype(np.float32)
+    got = t_cons.consistency_core(torch.from_numpy(dirty), torch.from_numpy(inv), nb, iters, lens)
+    assert torch.equal(got, want)
+
+
+def _kernel_model(src, ids, lens, inv_n, nb, iters, tile):
+    """The kernel's rounds in numpy: per work-list tile, A_iz read from the
+    stored pair (z, i) transposed where z < i, A_zj from (j, z) transposed
+    where z > j, each z summed to its read's length; round one reads
+    src[ids[c * npair + slot]] (or the slot layout), the later ones the
+    iterate."""
+    C, nb_ = lens.shape
+    npair, L = nb * (nb - 1) // 2, src.shape[-1]
+
+    def slot(a, b):
+        return a * nb - a * (a + 1) // 2 + b - a - 1
+
+    for _ in range(iters):
+        def pair(c, a, b, src=src, ids=ids):
+            q = c * npair + slot(a, b)
+            return src[ids[q]] if ids is not None else src[c, slot(a, b)]
+
+        out = np.zeros((C, npair, L, L), np.float32)
+        for c, ij, t in t_cons.work_list(lens, tile):
+            i, j, ti, tj = ij & 0xFFFF, ij >> 16, t & 0xFFFF, t >> 16
+            rows = slice(ti * tile, min((ti + 1) * tile, lens[c, i]))
+            cols = slice(tj * tile, min((tj + 1) * tile, lens[c, j]))
+            acc = np.zeros((rows.stop - rows.start, cols.stop - cols.start), np.float32)
+            for z in range(nb):
+                Lz = lens[c, z]
+                if z in (i, j) or not Lz:
+                    continue
+                a = pair(c, z, i)[:Lz, rows].T if z < i else pair(c, i, z)[rows, :Lz]
+                b = pair(c, z, j)[:Lz, cols] if z < j else pair(c, j, z)[cols, :Lz].T
+                acc += a @ b
+            aij = pair(c, i, j)[rows, cols]
+            out[c, slot(i, j), rows, cols] = np.where(aij < t_cons.MIN_SPARSE_PROB, 0.0, (2 * aij + acc) * inv_n[c])
+        src, ids = out, None
+    return out
+
+
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("nb,sizes,tile,iters", [(4, (3, 4), 160, 2), (8, (5, 8, 3), 7, 2), (8, (6,), 5, 1),
+                                                 (12, (9, 12), 16, 2)])
+def test_kernel_model_matches_the_plain_version(nb, sizes, tile, iters, gather):
+    """The kernel's addressing (work list, slots, transposed operands,
+    per-z lengths, the gather through pair ids in round one) reproduces
+    the plain version, at tiles small enough to cut every box."""
+    rng = np.random.default_rng(nb * tile + iters)
+    L = 24
+    lens = _bucket_lengths(rng, sizes, nb, 1, L, pad_clusters=1)
+    x = _padded_pairs(rng, lens, L, garbage=True)
+    inv = np.array([1.0 / n for n in sizes] + [1.0], np.float32)
+    want = t_cons.consistency_core(torch.from_numpy(x), torch.from_numpy(inv), nb, iters, lens).numpy()
+    if gather:  # the pairs scattered through a larger tensor, pad slots pointing anywhere
+        C, npair = x.shape[:2]
+        perm = rng.permutation(C * npair + 5)[: C * npair]
+        posts = rng.random((C * npair + 5, L, L)).astype(np.float32)
+        posts[perm] = x.reshape(C * npair, L, L)
+        got = _kernel_model(posts, perm, lens, inv, nb, iters, tile)
+    else:
+        got = _kernel_model(x, None, lens, inv, nb, iters, tile)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert (want > 0).any()
+
+
+@pytest.mark.parametrize("nb,iters", [(4, 2), (8, 1)])
+def test_assemble_transform_with_lengths_is_unchanged(nb, iters):
+    """On the CPU, ``assemble_transform`` given the members' lengths gives
+    what it gives without them (the pad slots are masked either way)."""
+    rng = np.random.default_rng(nb)
+    L = 24
+    sizes = (3, nb, nb - 1)
+    lens = _bucket_lengths(rng, sizes, nb, 1, L, pad_clusters=1)
+    x = _padded_pairs(rng, lens, L)
+    C, npair = x.shape[:2]
+    perm = rng.permutation(C * npair)
+    posts = np.zeros_like(x.reshape(C * npair, L, L))
+    posts[perm] = x.reshape(C * npair, L, L)
+    mask = (lens[:, np.triu_indices(nb, 1)[1]] > 0).ravel()
+    inv = np.array([1.0 / n for n in sizes] + [1.0], np.float32)
+    args = (torch.from_numpy(posts), torch.from_numpy(perm), torch.from_numpy(mask), torch.from_numpy(inv), nb,
+            iters, C, L)
+    assert torch.equal(t_dm.assemble_transform(*args, lengths=lens), t_dm.assemble_transform(*args))

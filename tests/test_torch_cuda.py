@@ -11,7 +11,11 @@ its twin (same rounding points, same summation order, the same libdevice
 tanh/log); K2's posteriors agree within atol = rtol = 1e-4 and its EA
 score equals the native ``mea_score`` of its own bf16-rounded posterior;
 the merge kernel's codes and positions are bit-equal to its twin's (the
-same f32 sums in the same order, exact compares); edit distances are integers
+same f32 sums in the same order, exact compares); the consistency kernel
+is within atol 1e-5 of its plain version on the float32 iterate and one
+bf16 step on the assembled pairs, but where round two's mask meets an
+iterate within 1e-6 of the threshold (another summation order), and
+bit-equal to itself; edit distances are integers
 (bit-equal); the device MSA, ``align()`` and the k-mer clusterer give the
 CPU's rows and assignments; the general-table pair-HMM (plain torch)
 agrees with the CPU within atol = rtol = 1e-4, and ``batch_posteriors``
@@ -309,6 +313,154 @@ def test_consistency_clusters_on_device(dev, min_device_clusters):
                 np.testing.assert_array_equal(a, b)
             else:
                 np.testing.assert_allclose(a, b, atol=2e-5, rtol=1e-4)
+
+
+# (n true, bucket): the device MSA's buckets (device_msa.MSA_BUCKETS) from 3 to 32 reads
+CONSISTENCY_SIZES = [(3, 4), (4, 4), (5, 8), (8, 8), (9, 12), (12, 12), (16, 16), (32, 32)]
+
+
+def _consistency_batch(rng, n, nb, L=160, C=3):
+    """C - 1 clusters of n reads in bucket nb and one pad cluster: ragged
+    true lengths in 1..L (one cluster's reads all at L), bf16 pair
+    posteriors scattered through a larger pair tensor (the pad slots point
+    at pair 0), zero outside each true box, some values on either side of
+    MIN_SPARSE_PROB and some at n/2 times it (an iterate near the threshold
+    in round two). Returns (posts bf16 [P, L, L], ids int64, mask, inv_n,
+    lengths [C, nb])."""
+    from dna_ldpc_tpu_torch.ops.msa.pairhmm import MIN_SPARSE_PROB
+
+    npair = nb * (nb - 1) // 2
+    lens = np.zeros((C, nb), np.int32)
+    lens[0, :n] = L
+    for c in range(1, C - 1):
+        lens[c, :n] = rng.integers(1, L + 1, n)
+    pos = np.arange(L)
+    slots = list(zip(*np.triu_indices(nb, 1)))
+    P = C * npair + 7
+    posts = np.zeros((P, L, L), np.float32)
+    ids = np.zeros(C * npair, np.int64)
+    mask = np.zeros(C * npair, bool)
+    where = iter(rng.permutation(np.arange(1, P)))
+    for c in range(C):
+        for s, (i, j) in enumerate(slots):
+            if not (lens[c, i] and lens[c, j]):
+                continue
+            q = next(where)
+            x = rng.random((L, L)) * (rng.random((L, L)) < 0.08)
+            near = rng.random((L, L)) < 0.03  # round one's mask, on the input
+            x = np.where(near, MIN_SPARSE_PROB * rng.choice([0.99, 0.999, 1.0, 1.001, 1.01], (L, L)), x)
+            # round two's: where the product adds little, the iterate 2 x / n lands near the threshold
+            near = rng.random((L, L)) < 0.03
+            x = np.where(near, MIN_SPARSE_PROB * n / 2 * rng.choice([0.99, 0.999, 1.0, 1.001], (L, L)), x)
+            box = (pos[:, None] < lens[c, i]) & (pos[None, :] < lens[c, j])
+            posts[q] = np.where(box, x, 0.0)
+            ids[c * npair + s], mask[c * npair + s] = q, True
+    inv = np.array([1.0 / max(n, 1)] * (C - 1) + [1.0], np.float32)
+    bf = torch.from_numpy(posts).to(torch.bfloat16)
+    return bf, ids, mask, inv, lens
+
+
+def _flips_explained(got, want, iterate, atol):
+    """Entries of ``got`` and ``want`` apart by more than ``atol``, each of
+    which must sit where the float32 iterate of round one lies within 1e-6
+    of MIN_SPARSE_PROB (round two masks on it; the kernel and the plain
+    version sum in other orders, so such an entry may fall on either side).
+    Returns their count."""
+    from dna_ldpc_tpu_torch.ops.msa.pairhmm import MIN_SPARSE_PROB
+
+    off = np.abs(got - want) > atol
+    near = np.abs(iterate - MIN_SPARSE_PROB) <= 1e-6
+    assert not (off & ~near).any(), np.abs(got - want)[off & ~near].max()
+    return int(off.sum())
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("n,nb", CONSISTENCY_SIZES)
+def test_consistency_kernel_matches_plain(dev, n, nb, iters):
+    """The consistency kernel against the plain version on the card, through
+    both entries: ``consistency_core`` on the float32 slots within atol 1e-5
+    and ``assemble_transform`` (bf16 posteriors gathered by the kernel
+    through the pair ids) within one bf16 step of the plain gather + block
+    product. Round two masks on the float32 iterate, where the two summation
+    orders can put an entry within 1e-6 of the threshold on either side:
+    those entries alone may differ, and they are counted. Two runs are
+    bit-equal; the launch counter reads ``iters`` per call; the pad slots,
+    the pad cluster and everything outside the true boxes stay zero."""
+    from dna_ldpc_tpu_torch.ops.msa import consistency
+
+    rng = np.random.default_rng(100 * n + iters)
+    L = 160
+    posts, ids, mask, inv, lens = _consistency_batch(rng, n, nb, L)
+    C, npair = lens.shape[0], nb * (nb - 1) // 2
+    slots = torch.from_numpy(ids)
+    pm = posts.float()[slots].view(C, npair, L, L) * torch.from_numpy(mask)[:, None, None].view(C, npair, 1, 1)
+    pm_d, inv_d = pm.to(dev), torch.from_numpy(inv).to(dev)
+
+    before = consistency.launches
+    got = consistency.consistency_core(pm_d, inv_d, nb, iters, lens)
+    again = consistency.consistency_core(pm_d, inv_d, nb, iters, lens)
+    assert consistency.launches == before + 2 * iters
+    assert torch.equal(got, again)
+    want = consistency.consistency_core_ref(pm_d, inv_d, nb, iters, lens)
+    iterate = consistency.consistency_core_ref(pm_d, inv_d, nb, 1, lens).cpu().numpy()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    flips = _flips_explained(got, want, iterate, 1e-5)
+    box = consistency._box_mask(lens, nb, L).numpy()
+    assert not got[~box].any() and not got[-1].any()
+
+    before = consistency.launches
+    args = (posts.to(dev), torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev), inv_d, nb, iters, C, L)
+    P = device_msa.assemble_transform(*args, lengths=lens)
+    assert consistency.launches == before + iters
+    assert torch.equal(P, device_msa.assemble_transform(*args, lengths=lens))
+    # the plain flow: the gathered, masked bf16 pairs through the block product, rounded to bf16
+    plain = torch.from_numpy(want).to(torch.bfloat16)
+    bits = lambda t: t.view(torch.int16).cpu().numpy().astype(np.int32)  # noqa: E731 (non-negative values)
+    ulps = np.abs(bits(P[:, :, :L, :L].contiguous()) - bits(plain))
+    off = ulps > 1
+    assert not (off & ~(np.abs(iterate - 0.01) <= 1e-6)).any(), ulps.max()
+    assert not P[:, :, L].any() and not P[:, :, :, L].any()  # the gap row and column
+    assert (P.float().cpu().numpy()[:, :, :L, :L] > 0).sum() > 0
+    print(f"n={n} bucket {nb} iters {iters}: mask flips at the threshold {flips} (f32), {int(off.sum())} (bf16)")
+
+
+def test_consistency_kernel_launches_no_gemm(dev):
+    """Under the profiler, ``assemble_transform`` at the trial's shape
+    launches the consistency kernel ``iters`` times and no library GEMM."""
+    rng = np.random.default_rng(4)
+    posts, ids, mask, inv, lens = _consistency_batch(rng, 5, 8, 160, C=8)
+    C = lens.shape[0]
+    args = (posts.to(dev), torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(inv).to(dev), 8, 2, C, 160)
+    device_msa.assemble_transform(*args, lengths=lens)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        device_msa.assemble_transform(*args, lengths=lens)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert sum(c for k, c in counts.items() if "consistency_kernel" in k) == 2, counts
+    assert not [k for k in names if "gemm" in k.lower()], names
+
+
+def test_consistency_clusters_long_reads_on_device(dev):
+    """``consistency_clusters`` at min_device_clusters=1 on clusters of 3,
+    5 and 9 reads, one of them with reads of ~250 nt (L = 256: boxes cut
+    into several of the kernel's tiles), against ``device="cpu"`` within
+    atol 2e-5, rtol 1e-4."""
+    rng = np.random.default_rng(23)
+    cluster_posts = []
+    for n, length in ((3, 250), (5, 140), (9, 150), (5, 60)):
+        seqs = _copies(rng, n, length=length)
+        pairs = cluster_pairs(n)
+        cluster_posts.append(pairhmm.batch_posteriors([seqs[i] for i, _ in pairs], [seqs[j] for _, j in pairs],
+                                                      device="cpu"))
+    got = consistency_clusters(cluster_posts, min_device_clusters=1, device=dev)
+    want = consistency_clusters(cluster_posts, min_device_clusters=1, device="cpu")
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, atol=2e-5, rtol=1e-4)
 
 
 def _merge_case(dev, nb, Cmax, C=6, seed=0):
