@@ -32,6 +32,7 @@ import torch
 
 from ..models.ldpc_graph import GraphTensors, LdpcGraph
 from ..utils.device import DEFAULT_DEVICE, require_device
+from ..utils.profiling import count, wait
 
 
 @dataclasses.dataclass
@@ -117,8 +118,13 @@ def _iterate(graph: LdpcGraph, bits, v2c, max_iter: int, check_update, var_updat
     per-codeword latching of bits, unsat and iterations at the first zero
     syndrome, stop when all are done (``early_stop``) or at ``max_iter``.
     ``check_update``: [B, M, dc] v2c -> c2v; ``var_update``: [B, N, dv]
-    c2v per variable -> (v2c [B, N, dv], decisions [B, N] uint8). One host
-    sync per iteration (``done.all()``)."""
+    c2v per variable -> (v2c [B, N, dv], decisions [B, N] uint8). With
+    ``early_stop``, one host sync per iteration (the number of codewords
+    still live), counted as a wait. On the innermost open span of a
+    profiling record it counts ``iterations`` (the loop's) and
+    ``edge_iterations`` (the graph's edges times the codewords live in each
+    iteration: the sum over codewords of their iteration counts times the
+    edges)."""
     tabs = graph.to(bits.device)
     B = bits.shape[0]
     M, N, dc, dv = graph.n_checks, graph.n_vars, graph.dc_max, graph.dv_max
@@ -126,7 +132,14 @@ def _iterate(graph: LdpcGraph, bits, v2c, max_iter: int, check_update, var_updat
     done = unsat == 0
     iters = torch.zeros(B, dtype=torch.int32, device=bits.device)
     n = 0
-    while n < max_iter and not (early_stop and bool(done.all())):
+    while n < max_iter:
+        live = B
+        if early_stop:
+            live = B - int(done.sum())
+            wait(bits.device)
+            if live == 0:
+                break
+        count("edge_iterations", live * graph.n_edges)
         cv = _to_vars(check_update(v2c.reshape(B, M, dc)).reshape(B, M * dc), tabs, N, dv)
         v2c_vm, new_bits = var_update(cv)
         v2c = _to_checks(v2c_vm, tabs)
@@ -136,6 +149,7 @@ def _iterate(graph: LdpcGraph, bits, v2c, max_iter: int, check_update, var_updat
         iters = torch.where(done, iters, torch.full_like(iters, n + 1))
         done = done | (new_unsat == 0)
         n += 1
+    count("iterations", n)
     return BpResult(bits=bits, success=done, iterations=iters, unsat=unsat)
 
 

@@ -25,6 +25,12 @@ does on these irregular graphs, and the shared peeling step
 (``decoders.peel_values``, one host sync per round). Both are eager torch:
 they are XLA programs in the JAX package, no TPU kernel.
 
+``sliding_window_decode`` and ``pipeline_decode`` each close a profiling
+record (``utils/profiling.py``; root spans ``scldpc.sliding_window`` and
+``scldpc.pipeline``) with a ``scldpc.window`` span per window BP: its
+iterations, edge-iterations and host waits, and under a profiler its
+device seconds. The window graph is sliced from the chain's sparse rows.
+
 The reference's pipeline decoder keeps several windows in flight at once
 (one per frame stage); here the same concurrency is the batch axis — every
 batch element advances through the same window anchor together, so a
@@ -42,6 +48,7 @@ from ..models.ldpc_graph import LdpcGraph
 from ..models.scldpc import ScChain
 from ..utils.device import DEFAULT_DEVICE, require_device
 from ..utils.io_formats import SparseBinaryMatrix
+from ..utils.profiling import count, device_time, span, wait
 from .bp import bp_decode_generic
 from .decoders import ERASE_MARK
 from .decoders import peel_values as _peel_values
@@ -59,17 +66,23 @@ def _window_graph(chain: ScChain, W: int) -> LdpcGraph:
     if chain.L < W + w:
         raise ValueError("chain too short for this window")
     t0 = w  # guaranteed interior anchor
-    dense = chain.H.to_dense()
-    rows = dense[t0 * b_c : (t0 + W) * b_c, (t0 - w) * b_v : (t0 + W) * b_v]
-    sub = SparseBinaryMatrix.from_coo(
-        rows.shape[0], rows.shape[1], *np.nonzero(rows)
-    )
-    return LdpcGraph.from_sparse(sub)
+    # sliced from the sparse rows: the chain's dense matrix is 5 GB at lifting 256 and L = 64
+    H, (r0, r1), (c0, c1) = chain.H, (t0 * b_c, (t0 + W) * b_c), ((t0 - w) * b_v, (t0 + W) * b_v)
+    rows = np.repeat(np.arange(r0, r1), np.diff(H.indptr[r0 : r1 + 1]))
+    cols = H.indices[H.indptr[r0] : H.indptr[r1]]
+    keep = (cols >= c0) & (cols < c1)
+    return LdpcGraph.from_sparse(SparseBinaryMatrix.from_coo(r1 - r0, c1 - c0, rows[keep] - r0, cols[keep] - c0))
 
 
 def _on_device(values, dtype, device) -> torch.Tensor:
-    """Host values [B, n] (or [n]) as a tensor on ``device``."""
-    return torch.as_tensor(np.atleast_2d(np.asarray(values, dtype)), device=require_device(device))
+    """Values [B, n] (or [n]) as a tensor on ``device``: a tensor is taken
+    as it is (cast to ``dtype``, moved where it lies elsewhere), host
+    values are uploaded (a pageable upload: a wait)."""
+    dev = require_device(device)
+    if isinstance(values, torch.Tensor):
+        return torch.atleast_2d(values.to(device=dev, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype))
+    wait(dev)
+    return torch.as_tensor(np.atleast_2d(np.asarray(values, dtype)), device=dev)
 
 
 def _work(values, dtype, left: int, right: int, fill, device) -> torch.Tensor:
@@ -91,21 +104,39 @@ def sliding_window_decode(
     W: int = 4,
     iters: int = 20,
     device=DEFAULT_DEVICE,
+    on_window=None,
 ) -> np.ndarray:
     """Sliding-window BP over an SC-LDPC chain on ``device``. llr:
-    [B, n_vars] float32. Returns hard decisions [B, n_vars] uint8,
-    committed block by block as the window slides (the decoding wave)."""
+    [B, n_vars] float32, host values or a tensor (on ``device``, no copy
+    is uploaded). Returns hard decisions [B, n_vars] uint8, committed
+    block by block as the window slides (the decoding wave).
+    ``on_window(t0, result)``, where given, receives each anchor's
+    ``BpResult`` (on the card, nothing downloaded) as its BP ends.
+
+    The call is a profiling record ``scldpc.sliding_window`` (a root span,
+    ``utils/profiling.py``) with one ``scldpc.window`` span per anchor:
+    ``windows`` 1, the BP loop's ``iterations``, ``edge_iterations`` and
+    ``waits``, and under a profiler the window's device seconds (CUDA
+    events around its launches); the upload of host LLRs and the result's
+    download are waits of the root."""
     w, b_v, L = chain.w, chain.b_v, chain.L
     graph = _window_graph(chain, W)
-    # pad: w decided-zero blocks on the left, W-1 terminated blocks right
-    work = _work(llr, np.float32, w * b_v, (W - 1) * b_v, BIG, device)
-    for t0 in range(L):
-        lo = t0 * b_v  # window starts at (t0 - w) + w pad blocks
-        res = bp_decode_generic(graph, work[:, lo : lo + (W + w) * b_v], max_iter=iters)
-        # hard-decision feedback: freeze the committed (oldest active) block
-        work[:, (t0 + w) * b_v : (t0 + w + 1) * b_v] = _frozen(res.bits[:, w * b_v : (w + 1) * b_v])
-    # every block holds its committed decision as +/-BIG from here on
-    return (work[:, w * b_v : (w + L) * b_v] < 0).to(torch.uint8).cpu().numpy()
+    with span("scldpc.sliding_window", root=True):
+        # pad: w decided-zero blocks on the left, W-1 terminated blocks right
+        work = _work(llr, np.float32, w * b_v, (W - 1) * b_v, BIG, device)
+        for t0 in range(L):
+            lo = t0 * b_v  # window starts at (t0 - w) + w pad blocks
+            with span("scldpc.window"), device_time(work.device):
+                count("windows")
+                res = bp_decode_generic(graph, work[:, lo : lo + (W + w) * b_v], max_iter=iters)
+                if on_window is not None:
+                    on_window(t0, res)
+                # hard-decision feedback: freeze the committed (oldest active) block
+                work[:, (t0 + w) * b_v : (t0 + w + 1) * b_v] = _frozen(res.bits[:, w * b_v : (w + 1) * b_v])
+        # every block holds its committed decision as +/-BIG from here on
+        out = (work[:, w * b_v : (w + L) * b_v] < 0).to(torch.uint8).cpu().numpy()
+        wait(work.device)
+    return out
 
 
 def pipeline_decode(chain: ScChain, llrs, W: int = 4, iters: int = 20, device=DEFAULT_DEVICE) -> np.ndarray:
@@ -122,18 +153,27 @@ def pipeline_decode(chain: ScChain, llrs, W: int = 4, iters: int = 20, device=DE
     concurrency structure the reference gets from keeping one window per
     stream position in flight. The JAX package pads every tick's batch to
     F rows so that one compiled decoder serves every tick; eager torch
-    decodes the frames in flight only."""
+    decodes the frames in flight only.
+
+    The call is a profiling record ``scldpc.pipeline`` with one
+    ``scldpc.window`` span per tick (one batched BP of the windows of the
+    frames in flight), counted as ``sliding_window_decode`` counts."""
     w, b_v, L = chain.w, chain.b_v, chain.L
     graph = _window_graph(chain, W)
-    work = _work(llrs, np.float32, w * b_v, (W - 1) * b_v, BIG, device)
-    F = work.shape[0]
-    cols = torch.arange((W + w) * b_v, device=work.device)
-    for t in range(L + F - 1):
-        f = torch.arange(max(0, t - L + 1), min(t, F - 1) + 1, device=work.device)[:, None]  # frames in flight
-        lo = (t - f) * b_v  # frame f's window at anchor t - f
-        res = bp_decode_generic(graph, work[f, lo + cols], max_iter=iters)
-        work[f, lo + w * b_v + cols[:b_v]] = _frozen(res.bits[:, w * b_v : (w + 1) * b_v])
-    return (work[:, w * b_v : (w + L) * b_v] < 0).to(torch.uint8).cpu().numpy()
+    with span("scldpc.pipeline", root=True):
+        work = _work(llrs, np.float32, w * b_v, (W - 1) * b_v, BIG, device)
+        F = work.shape[0]
+        cols = torch.arange((W + w) * b_v, device=work.device)
+        for t in range(L + F - 1):
+            with span("scldpc.window"), device_time(work.device):
+                count("windows")
+                f = torch.arange(max(0, t - L + 1), min(t, F - 1) + 1, device=work.device)[:, None]  # frames in flight
+                lo = (t - f) * b_v  # frame f's window at anchor t - f
+                res = bp_decode_generic(graph, work[f, lo + cols], max_iter=iters)
+                work[f, lo + w * b_v + cols[:b_v]] = _frozen(res.bits[:, w * b_v : (w + 1) * b_v])
+        out = (work[:, w * b_v : (w + L) * b_v] < 0).to(torch.uint8).cpu().numpy()
+        wait(work.device)
+    return out
 
 
 def _bec_work(chain: ScChain, values, right_blocks: int, device) -> torch.Tensor:

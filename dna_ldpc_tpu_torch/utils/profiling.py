@@ -15,17 +15,19 @@ elapsed time in result files (DNA_main.cpp:1092-1101). Here:
   so the program's spans sit in the device trace, nested as here, around
   the kernels they launch; otherwise it costs two clock reads and an
   append;
-- a span opened with ``root=True`` where no trial record is open in its
-  thread (``decode_trial``'s ``trial``) opens one: every span below it
-  is kept as (name, parent, kind, start, host seconds, device seconds,
-  counts), and the record joins a ring of the last ``RING`` trials when
-  the root closes (``recent_trials``);
-- ``count(name, n)`` adds to the innermost open span of a trial record;
+- a span opened with ``root=True`` where no record is open in its
+  thread (``decode_trial``'s ``trial``, the SC-LDPC decoders'
+  ``scldpc.sliding_window`` and ``scldpc.pipeline``) opens one: every
+  span below it is kept as (name, parent, kind, start, host seconds,
+  device seconds, counts), and the record joins a ring of the last
+  ``RING`` records of its root's name when the root closes
+  (``recent_records``; ``recent_trials`` for ``trial``);
+- ``count(name, n)`` adds to the innermost open span of a record;
   ``wait(device, n)`` counts ``n`` blocking waits of the host on the card
   (a synchronize, a download, a pageable upload, ``bool()`` of a device
   tensor) where ``device`` is a CUDA device; ``tracing()`` says whether
   a count that costs more than constant host work should be taken (a
-  profiler records and a trial record is open);
+  profiler records and a record is open);
 - ``device_time(device)`` — while a profiler records, a pair of CUDA
   events on the current stream around the enclosed launches; the root
   reads their elapsed time into the innermost span's device seconds when
@@ -50,9 +52,9 @@ from dataclasses import dataclass, field
 import torch
 
 HOST, DEVICE = "host", "device"
-RING = 256  # trial records kept
+RING = 256  # records kept per root name
 
-_trials: collections.deque = collections.deque(maxlen=RING)
+_rings: dict[str, collections.deque] = {}
 _local = threading.local()
 _NULL = contextlib.nullcontext()
 
@@ -70,7 +72,7 @@ def _stack() -> list:
 
 
 class _Record:
-    """The trial record open in a thread: its spans, in opening order, and
+    """The record open in a thread: its spans, in opening order, and
     the CUDA event pairs still to be read."""
 
     __slots__ = ("spans", "t0", "events")
@@ -133,13 +135,14 @@ class span:
         if self._record is not None:
             _local.record = None
             if exc_type is None:
-                _trials.append(self._record.close())
+                ring = _rings.setdefault(self.name, collections.deque(maxlen=RING))
+                ring.append(self._record.close())
         return False
 
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the count ``name`` of the innermost open span of a
-    trial record (nothing outside one)."""
+    record (nothing outside one)."""
     st = _stack()
     if st:
         e = st[-1]._entry
@@ -156,7 +159,7 @@ def wait(device, n: int = 1) -> None:
 
 
 def tracing() -> bool:
-    """Whether a profiler records and this thread's trial record is open:
+    """Whether a profiler records and this thread's record is open:
     the condition for counts that cost more than constant host work."""
     return getattr(_local, "record", None) is not None and profiling()
 
@@ -182,20 +185,27 @@ class _Events:
 def device_time(device):
     """Time the enclosed launches on ``device`` with a CUDA event pair into
     the innermost span's device seconds, while a profiler records and a
-    trial record is open; else a no-op context."""
+    record is open; else a no-op context."""
     st = _stack()
     if not st or st[-1]._entry is None or torch.device(device).type != "cuda" or not profiling():
         return _NULL
     return _Events(st[-1]._entry, device)
 
 
+def recent_records(root: str) -> list[list[dict]]:
+    """The last ``RING`` records whose root span is called ``root``, oldest
+    first. A record is the list of its spans in opening order (the root
+    first), each a dict of ``name``, ``parent`` (index in the list, -1 for
+    the root), ``kind``, ``start_s`` (host seconds after the root opened),
+    ``host_s``, ``device_s`` (None where no event timed it) and
+    ``counts``."""
+    return list(_rings.get(root, ()))
+
+
 def recent_trials() -> list[list[dict]]:
-    """The records of the last ``RING`` trials, oldest first. A record is
-    the list of its spans in opening order (the root first), each a dict
-    of ``name``, ``parent`` (index in the list, -1 for the root), ``kind``,
-    ``start_s`` (host seconds after the root opened), ``host_s``,
-    ``device_s`` (None where no event timed it) and ``counts``."""
-    return list(_trials)
+    """The records of the last ``RING`` trials (``decode_trial``'s root
+    span ``trial``), oldest first, as ``recent_records`` gives them."""
+    return recent_records("trial")
 
 
 @dataclass

@@ -15,7 +15,12 @@ two buckets. Held here:
   has device seconds; under a CPU profiler every span is a
   ``user_annotation`` range of the exported trace, nested as the record
   says;
-- the ring keeps the last 256 trials.
+- the ring keeps the last 256 trials;
+- an SC-LDPC decode call (``ops/scldpc.py``) closes a record of its own
+  root, ``scldpc.sliding_window`` or ``scldpc.pipeline``, with one
+  ``scldpc.window`` span per window BP whose ``iterations``,
+  ``edge_iterations`` and ``waits`` are those the window's BP ran and
+  made, and leaves the trials' ring as it was.
 """
 
 import importlib
@@ -27,7 +32,11 @@ import numpy as np
 import pytest
 import torch
 
+from dna_ldpc_tpu_torch.models import build_rs_ldpc
 from dna_ldpc_tpu_torch.models.blocked import dna_storage_blocked
+from dna_ldpc_tpu_torch.models.scldpc import couple
+from dna_ldpc_tpu_torch.ops import bp as t_bp
+from dna_ldpc_tpu_torch.ops import scldpc as t_sc
 from dna_ldpc_tpu_torch.ops.msa.align import CONSISTENCY_ITERS
 from dna_ldpc_tpu_torch.pipeline import decode as t_decode
 from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
@@ -228,3 +237,49 @@ def test_spans_nest_within_one_record_and_fill_timings():
     assert [(s["name"], s["parent"], s["counts"]) for s in trial] == [
         ("trial", -1, {}), ("a", 0, {}), ("inner", 1, {"n": 2}), ("a", 0, {"n": 1})]
     assert timings["a"] == pytest.approx(trial[1]["host_s"] + trial[3]["host_s"], rel=1e-12, abs=0)
+
+
+SC_L, SC_W, SC_ITERS, SC_FRAMES = 16, 4, 20, 8
+
+
+@pytest.mark.parametrize("decoder,root,windows", [("sliding_window_decode", "scldpc.sliding_window", SC_L),
+                                                  ("pipeline_decode", "scldpc.pipeline", SC_L + SC_FRAMES - 1)])
+def test_sc_decode_closes_a_record_of_its_windows(monkeypatch, decoder, root, windows):
+    chain = couple(build_rs_ldpc(4, 6, 3), L=SC_L, w=2, seed=0)
+    sigma = 0.7
+    gen = torch.Generator().manual_seed(3)
+    llr = (2 * (1 + sigma * torch.randn(SC_FRAMES, chain.n_vars, generator=gen)) / sigma**2).numpy()
+
+    def on_a_card(device, n=1):   # the CPU makes no wait: count each where a card would make it
+        profiling.count("waits", n)
+
+    def no_range(name):
+        raise AssertionError(f"a record_function range {name!r} was opened with no profiler recording")
+
+    seen = []
+    decode = t_sc.bp_decode_generic
+
+    def keep(graph, x, max_iter):
+        res = decode(graph, x, max_iter=max_iter)
+        seen.append((graph.n_edges, res.iterations))
+        return res
+
+    monkeypatch.setattr(t_bp, "wait", on_a_card)
+    monkeypatch.setattr(t_sc, "wait", on_a_card)
+    monkeypatch.setattr(t_sc, "bp_decode_generic", keep)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", no_range)
+    trials = profiling.recent_trials()
+    getattr(t_sc, decoder)(chain, llr, SC_W, SC_ITERS, device="cpu")
+    record = profiling.recent_records(root)[-1]
+    assert profiling.recent_trials() == trials == profiling.recent_records("trial")
+    assert record[0]["name"] == root and record[0]["parent"] == -1
+    assert record[0]["counts"] == {"waits": 2}   # the LLRs' upload, the decisions' download
+    spans = record[1:]
+    assert len(spans) == len(seen) == windows
+    assert all(s["name"] == "scldpc.window" and s["parent"] == 0 and s["device_s"] is None for s in spans)
+    for s, (edges, iterations) in zip(spans, seen):
+        n = int(iterations.max())
+        # one read of the live frames an iteration, and the one that finds none live
+        assert s["counts"] == {"windows": 1, "iterations": n, "edge_iterations": int(iterations.sum()) * edges,
+                               "waits": n + (n < SC_ITERS)}
+    assert 0 < sum(s["counts"]["iterations"] for s in spans) < windows * SC_ITERS
