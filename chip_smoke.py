@@ -93,14 +93,21 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     ``DNA_LDPC_DEVICE_MSA=0`` run's outcome. The pool's failures set in
     abruptly and not monotonically in the read count, so the counts are
     fixed, not searched for;
-15. SC-LDPC windowed decoding on the card (``ops/scldpc.py``, eager torch:
-    the windows' generic BP and the shared peeling step), on the chain
+15. SC-LDPC windowed decoding on the card (``ops/scldpc.py``: the windows'
+    BP through the window kernel ``csrc/window_bp.cu``, the peeling step
+    eager torch), on the chain
     ``couple(build_rs_ldpc(6, 6, 3), L=64, w=2)`` (12,672 x 24,576, windows
     of W = 6: 1,152 x 3,072, not blocked) and the all-zero codeword:
     (a) 1,024 AWGN frames through ``sliding_window_decode`` and
-    ``pipeline_decode``, which must be equal, the first 8 frames equal to
-    ``device="cpu"``, BER below the channel's; frames per second, FER, and
-    the ms per BP iteration and per peeling round of one window;
+    ``pipeline_decode``, which must be equal and must both have launched
+    the window kernel once a window (a tick) and K1 never, the first 8
+    frames equal to ``device="cpu"``, BER below the channel's; frames per
+    second, FER, and the ms per BP iteration of one window (the kernel
+    beside its plain version, the eager ``bp_decode_generic``, and beside
+    its bound, ``utils/roofline.py::window_bp_bound_ms``: the count of the
+    benchmark's ``wbp_roofline.sc``) at a batch of 32 and 1,024, and per
+    peeling round; (c) the same three times on the benchmark cell's window
+    (lifting 256: 4,608 x 12,288), its line in ``kernels``;
     (b) 1,024 BEC frames through every windowed BEC variant (``_oc`` and
     ``_step`` with eta = 2, ``_ra`` on ``ra_extend``'s layout) and the
     global ``bec_decode_save`` / ``bec_decode_target``, each equal to
@@ -130,8 +137,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     that the port ran before the kernel, also ``library_ms``), within one
     bf16 step of it.
 
-Phases 10-12 and 17 print the K2 launches they made. Phases 2, 3, 7 and 9c
-print each kernel's time beside its bound at the
+Phases 10-12 and 17 print the K2 launches they made. Phases 2, 3, 7, 9c
+and 15 print each kernel's time beside its bound at the
 timed shape — the least time the card could take for that work
 (``dna_ldpc_tpu_torch/utils/roofline.py``: the bytes that must move at
 3.35 TB/s against the f32 operations at 67 TFLOP/s and the
@@ -144,7 +151,8 @@ decodes of phase 16, its subprocesses' included), error against
 its twin, time beside the twin's and beside its bound, and
 ``library_ms`` (null for K1, K2 and ``merge_dp``: no single PyTorch call
 computes them; the consistency kernel's is its plain version's block
-product through ``torch.bmm``, at bucket 8).
+product through ``torch.bmm``, at bucket 8); the window kernel's launches
+are phase 15's, its times those of the cell's window at 1,024 frames.
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -790,16 +798,44 @@ def _timed(fn):
     return out, time.time() - t0
 
 
-def _scldpc_phase(dev) -> None:
-    """Phase 15 (see the module docstring)."""
+def _window_bp_times(dev, graph, llr, clock_mhz: float) -> dict:
+    """The window kernel's ms per iteration (fixed work, SC_ITERS
+    iterations) on ``llr``'s first rows at a batch of SMALL_BATCH and of
+    all of them, beside the eager ``bp_decode_generic`` (its plain
+    version) and its bound."""
+    from dna_ldpc_tpu_torch.ops import window_bp
+    from dna_ldpc_tpu_torch.ops.bp import bp_decode_generic
+    from dna_ldpc_tpu_torch.utils import roofline
+
+    out = {}
+    for b in (SMALL_BATCH, llr.shape[0]):
+        x = llr[:b]
+        ms = _cuda_ms(lambda: window_bp.decode(graph, x, SC_ITERS, early_stop=False), 3) / SC_ITERS
+        plain = _cuda_ms(lambda: bp_decode_generic(graph, x, SC_ITERS, early_stop=False), 2) / SC_ITERS
+        bound, by = roofline.window_bp_bound_ms(graph.n_edges, graph.n_vars, [SC_ITERS] * b, clock_mhz)
+        out[b] = {"ms": ms, "plain_ms": plain, "bound_ms": bound / SC_ITERS, "bound_by": by,
+                  "share_pct": 100 * bound / SC_ITERS / ms}
+    return out
+
+
+def _times_line(times: dict) -> str:
+    ms = " / ".join(f"{r['ms']:.4f}" for r in times.values())
+    bound = " / ".join(f"{r['bound_ms']:.4f} ms, {r['share_pct']:.1f} %" for r in times.values())
+    plain = " / ".join(f"{r['plain_ms']:.3f}" for r in times.values())
+    return f"{ms} ms per iteration (bound {bound}; the eager plain version {plain} ms)"
+
+
+def _scldpc_phase(dev, clock_mhz: float) -> dict:
+    """Phase 15 (see the module docstring). Returns the window kernel's
+    times on the cell's window at the full batch."""
     import numpy as np
     import torch
 
     from dna_ldpc_tpu_torch.models.ldpc_graph import LdpcGraph
     from dna_ldpc_tpu_torch.models.rs_ldpc import build_rs_ldpc
     from dna_ldpc_tpu_torch.models.scldpc import couple
-    from dna_ldpc_tpu_torch.ops import bp_cuda, scldpc
-    from dna_ldpc_tpu_torch.ops.bp import bp_decode_generic
+    from dna_ldpc_tpu_torch.ops import bp_cuda, scldpc, window_bp
+    from dna_ldpc_tpu_torch.ops.bp import bp_posteriors
     from dna_ldpc_tpu_torch.ops.decoders import peel_values
 
     t0 = time.time()
@@ -820,10 +856,14 @@ def _scldpc_phase(dev) -> None:
 
     # (a) windowed BP: sliding window and the pipelined schedule, 1024 AWGN frames
     launches = bp_cuda.launches
+    window_bp.launches = 0
     sw, t_sw = _timed(lambda: scldpc.sliding_window_decode(chain, llr, W=SC_W, iters=SC_ITERS, device=dev))
     pl, t_pl = _timed(lambda: scldpc.pipeline_decode(chain, llr, W=SC_W, iters=SC_ITERS, device=dev))
+    main_launches = window_bp.launches  # the main path's alone: the timings and the probe below launch more
     if bp_cuda.launches != launches:
         raise AssertionError("windowed BP launched the K1 kernel")
+    if main_launches != chain.L + (chain.L + F - 1):
+        raise AssertionError(f"{main_launches} window kernel launches, not one a window and a tick")
     if not np.array_equal(pl, sw):
         raise AssertionError(f"pipeline_decode differs from sliding_window_decode in {int((pl != sw).sum())} bits")
     cpu = scldpc.sliding_window_decode(chain, llr[:8], W=SC_W, iters=SC_ITERS, device="cpu")
@@ -837,12 +877,22 @@ def _scldpc_phase(dev) -> None:
     if not ber < raw_ber:
         raise AssertionError(f"windowed BP leaves BER {ber} above the channel's {raw_ber}")
     win = torch.as_tensor(llr[:, : graph.n_vars], device=dev)
-    per_iter = [_cuda_ms(lambda: bp_decode_generic(graph, win[:b], SC_ITERS, early_stop=False), 3) / SC_ITERS
-                for b in (SMALL_BATCH, F)]
+    times = _window_bp_times(dev, graph, win, clock_mhz)
     erased = torch.as_tensor(np.where(rng.random((F, graph.n_vars)) < SC_ERASURE, 2, 0).astype(np.int8), device=dev)
     per_round = [_cuda_ms(lambda: peel_values(graph, erased[:b], 1), 10) for b in (SMALL_BATCH, F)]
-    print(f"[15a] on one window at batch {SMALL_BATCH} / {F}: generic BP {per_iter[0]:.3f} / {per_iter[1]:.3f} ms per "
-          f"iteration (fixed work); a peeling round {per_round[0]:.3f} / {per_round[1]:.3f} ms (its host sync included)")
+    print(f"[15a] on one window at batch {SMALL_BATCH} / {F}, fixed work: the window kernel {_times_line(times)}; "
+          f"a peeling round {per_round[0]:.3f} / {per_round[1]:.3f} ms (its host sync included)")
+    cell_graph = scldpc._window_graph(couple(build_rs_ldpc(8, 6, 3), L=64, w=2, seed=0), SC_W)
+    cell_llr = (2 / sigma**2) * (1 + sigma * torch.randn((F, cell_graph.n_vars), device=dev))
+    cell = _window_bp_times(dev, cell_graph, cell_llr, clock_mhz)
+    post = torch.empty_like(cell_llr)
+    window_bp._kernel(cell_graph, cell_llr, 3, False, post)
+    err = float((post - bp_posteriors(cell_graph, cell_llr, 3)).abs().max())
+    if err:
+        raise AssertionError(f"the window kernel's posteriors after 3 iterations are {err} from the plain version's")
+    print(f"[15c] the cell's window (lifting 256: {cell_graph.n_checks} x {cell_graph.n_vars}, {cell_graph.n_edges} "
+          f"edges, {window_bp.smem_bytes(cell_graph)} bytes of shared memory a frame) at batch {SMALL_BATCH} / {F}, "
+          f"fixed work: the window kernel {_times_line(cell)}; posteriors after 3 iterations equal to the plain version's")
 
     # (b) every windowed BEC variant and the global peels, 1024 BEC frames, each equal to the CPU on 8 frames
     vals = np.where(rng.random((F, N)) < SC_ERASURE, 2, 0).astype(np.int8)
@@ -872,6 +922,7 @@ def _scldpc_phase(dev) -> None:
             raise AssertionError(f"{name} decoded a bit of the all-zero word to 1")
     print(f"[15b] {F} BEC frames at erasure rate {SC_ERASURE} ({int((vals == 2).sum())} erasures; RA layout "
           f"{N + chain.n_checks} variables), each equal to device='cpu' on 8 frames: " + "; ".join(lines))
+    return {"launches": main_launches, "max_abs_err": err, **cell[F]}
 
 
 def _multiprocess_phase(dev, llr_trial) -> int:
@@ -1369,7 +1420,7 @@ def main() -> int:
             raise AssertionError(f"stress point: {name} differs between the device MSA and the host-aligner flow")
     # ---- 15. SC-LDPC windowed decoders; 16. multi-process BP ---------------
     t15 = time.time()
-    _scldpc_phase(dev)
+    window_bp_row = _scldpc_phase(dev, clock_mhz)
     t16 = time.time()
     k1_sharded_launches = _multiprocess_phase(dev, np.ascontiguousarray(llr_dev.T, np.float32))
     print(f"[15-16] phase 15 {t16 - t15:.2f} s, phase 16 {time.time() - t16:.2f} s; the script so far "
@@ -1407,6 +1458,8 @@ def main() -> int:
          "replaces": None, "launches": launches["consistency"],
          **{k: v for k, v in cons["consistency_b8_n5"].items() if k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_device_ms", "max_bf16_steps")}},
+        {"name": "window_bp", "route": "cuda", "source": "dna_ldpc_tpu_torch/csrc/window_bp.cu",
+         "replaces": None, "library_ms": None, **window_bp_row},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -96,6 +96,8 @@ def load() -> ctypes.CDLL:
             cl = ctypes.c_longlong
             lib.consistency_launch.argtypes = [vp, vp, ci, cl, ci, vp, ci, cl, ci, vp, vp, ci, vp, ci, vp]
             lib.consistency_launch.restype = ci
+            lib.window_bp_launch.argtypes = [vp, cl, vp, vp] + [ci] * 7 + [ctypes.c_float] + [vp] * 6
+            lib.window_bp_launch.restype = ci
             lib.dna_cuda_error_string.argtypes = [ci]
             lib.dna_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -19,17 +19,23 @@ each step a batched BP (or BEC peel) on [batch, window] tensors:
 
 The padded work array lives on ``device`` for the whole wave: each window
 is a view of it that is decoded (or peeled) and written back, so nothing
-crosses to the host until the result. Windows run the generic f32 gather
-decoder (``bp.bp_decode_generic``), as the JAX package's ``bp_decode``
-does on these irregular graphs, and the shared peeling step
-(``decoders.peel_values``, one host sync per round). Both are eager torch:
-they are XLA programs in the JAX package, no TPU kernel.
+crosses to the host until the result. A window's BP goes through
+``window_bp.decode``: on the card one launch of ``csrc/window_bp.cu``
+decodes the window (one thread block per frame, every iteration inside
+the kernel, each frame leaving at its first zero syndrome), with the
+float32 arithmetic of the generic gather decoder (``bp.bp_decode_generic``,
+which the JAX package's ``bp_decode`` runs on these irregular graphs, as
+XLA), and the CPU runs ``bp_decode_generic`` itself. The BEC windows run
+the shared peeling step (``decoders.peel_values``, one host sync per
+round), eager torch.
 
 ``sliding_window_decode`` and ``pipeline_decode`` each close a profiling
 record (``utils/profiling.py``; root spans ``scldpc.sliding_window`` and
 ``scldpc.pipeline``) with a ``scldpc.window`` span per window BP: its
-iterations, edge-iterations and host waits, and under a profiler its
-device seconds. The window graph is sliced from the chain's sparse rows.
+host waits, ``kernel`` 1 where the kernel decoded it, and its iterations
+and edge-iterations (on the card read when the record closes,
+``window_bp``), and under a profiler its device seconds. The window
+graph is sliced from the chain's sparse rows.
 
 The reference's pipeline decoder keeps several windows in flight at once
 (one per frame stage); here the same concurrency is the batch axis — every
@@ -49,7 +55,7 @@ from ..models.scldpc import ScChain
 from ..utils.device import DEFAULT_DEVICE, require_device
 from ..utils.io_formats import SparseBinaryMatrix
 from ..utils.profiling import count, device_time, span, wait
-from .bp import bp_decode_generic
+from . import window_bp
 from .decoders import ERASE_MARK
 from .decoders import peel_values as _peel_values
 
@@ -93,6 +99,22 @@ def _work(values, dtype, left: int, right: int, fill, device) -> torch.Tensor:
     return torch.cat([pad(left), x, pad(right)], 1)
 
 
+def _decisions(work: torch.Tensor, lo: int, hi: int) -> np.ndarray:
+    """The committed decisions, columns lo:hi of the work array, as a host
+    uint8 array. From the card they come through page-locked memory: a
+    call's decisions are 100 MB at the SC cell's size, and a pageable copy
+    of them ran at ~2 GB/s on an H100's host. The array stays a view of
+    that memory (torch's caching host allocator): a caller that keeps
+    many results pins as much host memory, and ``np.array(out)`` makes a
+    pageable copy."""
+    dec = (work[:, lo:hi] < 0).to(torch.uint8)
+    if dec.device.type != "cuda":
+        return dec.numpy()
+    host = torch.empty(dec.shape, dtype=dec.dtype, pin_memory=True)
+    host.copy_(dec)
+    return host.numpy()
+
+
 def _frozen(dec: torch.Tensor) -> torch.Tensor:
     """Committed hard decisions as saturated LLRs."""
     return torch.where(dec == 0, BIG, -BIG).to(torch.float32)
@@ -109,16 +131,19 @@ def sliding_window_decode(
     """Sliding-window BP over an SC-LDPC chain on ``device``. llr:
     [B, n_vars] float32, host values or a tensor (on ``device``, no copy
     is uploaded). Returns hard decisions [B, n_vars] uint8, committed
-    block by block as the window slides (the decoding wave).
+    block by block as the window slides (the decoding wave); from the card
+    a view of page-locked host memory (``_decisions``).
     ``on_window(t0, result)``, where given, receives each anchor's
     ``BpResult`` (on the card, nothing downloaded) as its BP ends.
 
     The call is a profiling record ``scldpc.sliding_window`` (a root span,
     ``utils/profiling.py``) with one ``scldpc.window`` span per anchor:
-    ``windows`` 1, the BP loop's ``iterations``, ``edge_iterations`` and
-    ``waits``, and under a profiler the window's device seconds (CUDA
-    events around its launches); the upload of host LLRs and the result's
-    download are waits of the root."""
+    ``windows`` 1, ``kernel`` 1 where the window kernel decoded it, the
+    BP's ``iterations`` and ``edge_iterations`` (on the card counted when
+    the record closes: ``window_bp``) and the eager loop's ``waits``, and
+    under a profiler the window's device seconds (CUDA events around its
+    launches); the upload of host LLRs and the result's download are
+    waits of the root."""
     w, b_v, L = chain.w, chain.b_v, chain.L
     graph = _window_graph(chain, W)
     with span("scldpc.sliding_window", root=True):
@@ -128,13 +153,13 @@ def sliding_window_decode(
             lo = t0 * b_v  # window starts at (t0 - w) + w pad blocks
             with span("scldpc.window"), device_time(work.device):
                 count("windows")
-                res = bp_decode_generic(graph, work[:, lo : lo + (W + w) * b_v], max_iter=iters)
+                res = window_bp.decode(graph, work[:, lo : lo + (W + w) * b_v], max_iter=iters)
                 if on_window is not None:
                     on_window(t0, res)
                 # hard-decision feedback: freeze the committed (oldest active) block
                 work[:, (t0 + w) * b_v : (t0 + w + 1) * b_v] = _frozen(res.bits[:, w * b_v : (w + 1) * b_v])
         # every block holds its committed decision as +/-BIG from here on
-        out = (work[:, w * b_v : (w + L) * b_v] < 0).to(torch.uint8).cpu().numpy()
+        out = _decisions(work, w * b_v, (w + L) * b_v)
         wait(work.device)
     return out
 
@@ -157,7 +182,8 @@ def pipeline_decode(chain: ScChain, llrs, W: int = 4, iters: int = 20, device=DE
 
     The call is a profiling record ``scldpc.pipeline`` with one
     ``scldpc.window`` span per tick (one batched BP of the windows of the
-    frames in flight), counted as ``sliding_window_decode`` counts."""
+    frames in flight), counted as ``sliding_window_decode`` counts; its
+    result comes back as ``sliding_window_decode``'s does."""
     w, b_v, L = chain.w, chain.b_v, chain.L
     graph = _window_graph(chain, W)
     with span("scldpc.pipeline", root=True):
@@ -169,9 +195,9 @@ def pipeline_decode(chain: ScChain, llrs, W: int = 4, iters: int = 20, device=DE
                 count("windows")
                 f = torch.arange(max(0, t - L + 1), min(t, F - 1) + 1, device=work.device)[:, None]  # frames in flight
                 lo = (t - f) * b_v  # frame f's window at anchor t - f
-                res = bp_decode_generic(graph, work[f, lo + cols], max_iter=iters)
+                res = window_bp.decode(graph, work[f, lo + cols], max_iter=iters)
                 work[f, lo + w * b_v + cols[:b_v]] = _frozen(res.bits[:, w * b_v : (w + 1) * b_v])
-        out = (work[:, w * b_v : (w + L) * b_v] < 0).to(torch.uint8).cpu().numpy()
+        out = _decisions(work, w * b_v, (w + L) * b_v)
         wait(work.device)
     return out
 

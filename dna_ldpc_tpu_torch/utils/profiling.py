@@ -27,7 +27,11 @@ elapsed time in result files (DNA_main.cpp:1092-1101). Here:
   (a synchronize, a download, a pageable upload, ``bool()`` of a device
   tensor) where ``device`` is a CUDA device; ``tracing()`` says whether
   a count that costs more than constant host work should be taken (a
-  profiler records and a record is open);
+  profiler records and a record is open); ``count_at_close(tensor, fn)``
+  copies a small device tensor to page-locked host memory without a wait
+  and, when the root closes, adds the counts ``fn`` reads from it to the
+  innermost span open at the call (counts of device results that would
+  otherwise make the host wait in the middle of a record);
 - ``device_time(device)`` — while a profiler records, a pair of CUDA
   events on the current stream around the enclosed launches; the root
   reads their elapsed time into the innermost span's device seconds when
@@ -52,7 +56,7 @@ from dataclasses import dataclass, field
 import torch
 
 HOST, DEVICE = "host", "device"
-RING = 256  # records kept per root name
+RING = 4096  # records kept per root name: a benchmark window of several hundred calls stays readable
 
 _rings: dict[str, collections.deque] = {}
 _local = threading.local()
@@ -72,20 +76,27 @@ def _stack() -> list:
 
 
 class _Record:
-    """The record open in a thread: its spans, in opening order, and
-    the CUDA event pairs still to be read."""
+    """The record open in a thread: its spans, in opening order, the
+    CUDA event pairs still to be read and the counts still to be taken."""
 
-    __slots__ = ("spans", "t0", "events")
+    __slots__ = ("spans", "t0", "events", "later")
 
     def __init__(self):
         self.spans: list[dict] = []
         self.t0 = 0.0  # the root's start, set when its clock is read
         self.events: list = []
+        self.later: list = []
 
     def close(self) -> list[dict]:
         for entry, start, end in self.events:
             end.synchronize()
             entry["device_s"] = (entry["device_s"] or 0.0) + start.elapsed_time(end) / 1e3
+        for entry, host, done, fn in self.later:
+            if done is not None:
+                done.synchronize()
+            c = entry["counts"]
+            for name, n in fn(host).items():
+                c[name] = c.get(name, 0) + n
         return self.spans
 
 
@@ -156,6 +167,25 @@ def wait(device, n: int = 1) -> None:
     device makes the host wait) on the innermost open span."""
     if (device.type if isinstance(device, torch.device) else torch.device(device).type) == "cuda":
         count("waits", n)
+
+
+def count_at_close(tensor: torch.Tensor, fn) -> None:
+    """Copy ``tensor`` to the host without a wait (page-locked memory from
+    the card) and, when the root closes, add ``fn(host copy)``, a dict of
+    counts, to the innermost open span of a record (nothing outside one)."""
+    st = _stack()
+    rec = getattr(_local, "record", None)
+    if rec is None or not st or st[-1]._entry is None:
+        return
+    done = None
+    if tensor.is_cuda:
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        host.copy_(tensor, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(tensor.device))
+    else:
+        host = tensor.clone()
+    rec.later.append((st[-1]._entry, host, done, fn))
 
 
 def tracing() -> bool:

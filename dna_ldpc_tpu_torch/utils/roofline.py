@@ -31,6 +31,10 @@ and ~8):
   wA x wB entries that the column maps address in each of the |A| x |B|
   blocks of ``Pblock`` that the masks select, each read once (no entry
   outside the box can reach the output).
+- the window kernel (``csrc/window_bp.cu``), per edge and frame-iteration
+  run: 2 special-function and 5 f32 operations, and 5 bytes a variable of
+  each frame (its LLR in, its decision out): the counts of the
+  benchmark's ``wbp_roofline.sc``, so that the two read alike.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ K1_MUFU_PER_EDGE_ITER, K1_F32_PER_EDGE_ITER = 4, 40
 K1_MUFU_PER_EDGE_INIT, K1_F32_PER_EDGE_INIT = 2, 15
 K2_MUFU_PER_CELL, K2_F32_PER_CELL = 37, 440
 MEA_F32_PER_CELL = 4
+WBP_MUFU_PER_EDGE_ITER, WBP_F32_PER_EDGE_ITER = 2, 5
 
 
 def bound_ms(n_bytes: float, f32_ops: float, mufu_ops: float = 0.0,
@@ -90,3 +95,12 @@ def merge_bound_ms(nA, nB, wA, wB, Cmax: int, sm_clock_mhz: float = DEFAULT_SM_C
         n_bytes += 2 * a * b * x * y + 4 * (a * x + b * y) + a + b + 8 + 2 * Cmax * 5
         f32 += (x + 1) * (y + 1) * (a * b + b + MEA_F32_PER_CELL)
     return bound_ms(n_bytes, f32, 0.0, sm_clock_mhz)
+
+
+def window_bp_bound_ms(n_edges: int, n_vars: int, iterations, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
+    """The window kernel on a batch: ``iterations`` is the number of
+    iterations each frame ran (the returned counts)."""
+    iters = [int(i) for i in iterations]
+    edge_iters = n_edges * sum(iters)
+    return bound_ms(5 * n_vars * len(iters), WBP_F32_PER_EDGE_ITER * edge_iters,
+                    WBP_MUFU_PER_EDGE_ITER * edge_iters, sm_clock_mhz)

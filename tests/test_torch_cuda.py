@@ -22,7 +22,10 @@ agrees with the CPU within atol = rtol = 1e-4, and ``batch_posteriors``
 within one bf16 step; the decoder zoo's
 integer-valued decoders (quantized min-sum levels, Gallager, FAID, BEC
 peeling) give the CPU's results exactly, float min-sum the CPU's outcomes
-on converging words."""
+on converging words; the SC-LDPC window kernel gives its plain version's
+(the eager ``bp_decode_generic`` on the card) bits, iterations, unsat and
+posteriors bit for bit, at every Eb/No: the same float32 operations on the
+same libdevice routines, with its sums taken in torch's order."""
 
 import numpy as np
 import pytest
@@ -216,6 +219,181 @@ def test_decoder_zoo_on_device_matches_cpu(dev):
         k, c = decoders.min_sum_decode(g, llr.to(dev), 30), decoders.min_sum_decode(g, llr, 30)
         ok = c.success & k.success.cpu()
         assert ok.sum() > len(cw) // 2 and torch.equal(k.bits.cpu()[ok], c.bits[ok])
+
+
+# the chains of chip_smoke.py's phase 15 (lifting 64) and of the benchmark's sc-awgn-w6 (lifting 256), W = 6
+SC_LIFTINGS = {64: (6, 6, 3), 256: (8, 6, 3)}
+
+
+def _sc_window(lifting):
+    from dna_ldpc_tpu_torch.models.scldpc import couple
+    from dna_ldpc_tpu_torch.ops import scldpc
+
+    chain = couple(build_rs_ldpc(*SC_LIFTINGS[lifting]), L=64, w=2, seed=0)
+    return chain, scldpc._window_graph(chain, 6)
+
+
+def _awgn(dev, F, n, ebno, seed, rate=31 / 64):
+    """LLRs of the all-zero word under BPSK at ``ebno`` (dB)."""
+    sigma = (1 / (2 * rate * 10 ** (ebno / 10))) ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (2 / sigma**2) * (1 + sigma * torch.randn((F, n), generator=gen, device=dev))
+
+
+def _same_window(got, want):
+    for name in ("bits", "success", "iterations", "unsat"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("ebno", [4.75, 2.75])
+@pytest.mark.parametrize("F", [1, 7, 1024])
+@pytest.mark.parametrize("lifting", sorted(SC_LIFTINGS))
+def test_window_kernel_matches_plain(dev, lifting, F, ebno):
+    """The window kernel against the eager decoder on the card, frame for
+    frame, at 4.75 dB (most frames decode) and at the cell's 2.75 dB (a
+    window alone decodes few), 20 iterations. Bound on the frames whose
+    outcome or iteration count differs: 0 at both. The one way the two
+    could part is the order of float32 sums (the exclusive product's log
+    sum and the posterior's), where an ulp on a saturated message tips a
+    frame near failure; the kernel takes torch's order on the card."""
+    from dna_ldpc_tpu_torch.ops import window_bp
+    from dna_ldpc_tpu_torch.ops.bp import bp_decode_generic
+
+    _, graph = _sc_window(lifting)
+    llr = _awgn(dev, F, graph.n_vars, ebno, seed=lifting + F)
+    before = window_bp.launches
+    got = window_bp.decode(graph, llr, 20)
+    want = bp_decode_generic(graph, llr, 20)
+    torch.cuda.synchronize()
+    assert window_bp.launches == before + 1
+    _same_window(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("lifting", sorted(SC_LIFTINGS))
+def test_window_kernel_posteriors_after_fixed_iterations(dev, lifting, k):
+    """Posteriors after k fixed iterations (no early stop) at 2.75 dB,
+    against ``bp_posteriors``: tolerance 0 (see above)."""
+    from dna_ldpc_tpu_torch.ops import window_bp
+    from dna_ldpc_tpu_torch.ops.bp import bp_decode_generic, bp_posteriors
+
+    _, graph = _sc_window(lifting)
+    llr = _awgn(dev, 256, graph.n_vars, 2.75, seed=k)
+    post = torch.empty_like(llr)
+    got = window_bp._kernel(graph, llr, k, False, post)
+    assert torch.equal(post, bp_posteriors(graph, llr, k))
+    _same_window(got, bp_decode_generic(graph, llr, k, early_stop=False))
+
+
+@pytest.mark.parametrize("lifting", sorted(SC_LIFTINGS))
+def test_window_kernel_edge_cases(dev, lifting):
+    """A strided view of a wider work array; frames decoded at iteration 0;
+    one iteration; every variable frozen at +/-BIG (a codeword: done at 0;
+    random signs: saturated messages to the cap); frames of each kind in one
+    batch, each as it decodes alone."""
+    from dna_ldpc_tpu_torch.ops import window_bp
+    from dna_ldpc_tpu_torch.ops.bp import bp_decode_generic
+    from dna_ldpc_tpu_torch.ops.scldpc import BIG
+
+    _, graph = _sc_window(lifting)
+    n = graph.n_vars
+    work = _awgn(dev, 64, 3 * n + 5, 3.0, seed=1)
+    view = work[:, n + 5 : 2 * n + 5]
+    assert view.stride() == (3 * n + 5, 1)
+    _same_window(window_bp.decode(graph, view, 20), bp_decode_generic(graph, view.contiguous(), 20))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    signs = torch.where(torch.rand((8, n), generator=gen, device=dev) < 0.5, -BIG, BIG)
+    cases = {
+        "decoded at 0": torch.full((8, n), 3.0, device=dev),
+        "one iteration": _awgn(dev, 8, n, 2.75, seed=3),
+        "frozen codeword": torch.full((8, n), BIG, device=dev),
+        "frozen random": signs,
+    }
+    for name, llr in cases.items():
+        iters = 1 if name == "one iteration" else 20
+        got, want = window_bp.decode(graph, llr, iters), bp_decode_generic(graph, llr, iters)
+        _same_window(got, want)
+        if name in ("decoded at 0", "frozen codeword"):
+            assert (got.iterations == 0).all() and got.success.all(), name
+        if name == "frozen random":
+            assert (got.iterations == 20).all() and not got.success.any()
+    mixed = torch.cat(list(cases.values()))
+    _same_window(window_bp.decode(graph, mixed, 20), bp_decode_generic(graph, mixed, 20))
+
+
+def test_window_kernel_routing_on_the_card(dev):
+    """On the card every window goes through the kernel: a graph whose
+    state exceeds one block's shared memory, a check degree it is not
+    built for, a float64 tensor or a shape off the graph raise, and nothing
+    is decoded eagerly."""
+    from dna_ldpc_tpu_torch.models import LdpcGraph
+    from dna_ldpc_tpu_torch.ops import window_bp
+    from dna_ldpc_tpu_torch.utils.io_formats import SparseBinaryMatrix
+
+    rng = np.random.default_rng(1)
+    M, N = 16384, 32768
+    rows = np.concatenate([rng.choice(M, 3, replace=False) for _ in range(N)])
+    big = LdpcGraph.from_sparse(SparseBinaryMatrix.from_coo(M, N, rows, np.repeat(np.arange(N), 3)))
+    assert not window_bp.fits(big)
+    _, graph = _sc_window(64)
+    before = window_bp.launches
+    with pytest.raises(ValueError, match="bytes of state"):
+        window_bp.decode(big, _awgn(dev, 4, N, 3.0, seed=1), 3)
+    small = LdpcGraph.from_sparse(SparseBinaryMatrix.from_coo(4, 8, np.arange(8) % 4, np.arange(8)))
+    assert small.dc_max == 2 and not window_bp.fits(small)
+    with pytest.raises(ValueError, match="check degree 2"):
+        window_bp.decode(small, _awgn(dev, 4, 8, 3.0, seed=1), 3)
+    with pytest.raises(ValueError, match="float32"):
+        window_bp.decode(graph, _awgn(dev, 4, graph.n_vars, 3.0, seed=1).double(), 3)
+    with pytest.raises(ValueError, match="float32"):
+        window_bp.decode(graph, torch.zeros((2, graph.n_vars + 1), device=dev), 3)
+    torch.cuda.synchronize()
+    assert window_bp.launches == before
+
+
+def test_windowed_decoders_go_through_the_kernel(dev):
+    """``pipeline_decode`` equals ``sliding_window_decode`` bit for bit on
+    the card, and both launch the window kernel once a window (a tick)."""
+    from dna_ldpc_tpu_torch.ops import scldpc, window_bp
+
+    chain, graph = _sc_window(64)
+    F = 48
+    llr = _awgn(dev, F, chain.n_vars, 2.5, seed=9, rate=1 - chain.n_checks / chain.n_vars)
+    before = window_bp.launches
+    sw = scldpc.sliding_window_decode(chain, llr, W=6, iters=20, device=dev)
+    assert window_bp.launches == before + chain.L
+    pl = scldpc.pipeline_decode(chain, llr, W=6, iters=20, device=dev)
+    assert window_bp.launches == before + chain.L + (chain.L + F - 1)
+    assert np.array_equal(pl, sw)
+
+
+def test_window_spans_on_the_card(dev, monkeypatch):
+    """Each ``scldpc.window`` span counts ``kernel`` 1, the frames' largest
+    iteration count and their sum times the edges (read when the record
+    closes: no wait of its own) and, while a profiler records, its device
+    seconds (CUDA events); the root one wait, the decisions' download. The
+    same counts without a profiler. The tracer is told that a profiler
+    records (``profiling.profiling``): a real session here made the CUDA
+    trace of ``test_consistency_kernel_launches_no_gemm``, later in this
+    file, miss a kernel."""
+    from dna_ldpc_tpu_torch.ops import scldpc
+    from dna_ldpc_tpu_torch.utils import profiling
+
+    chain, graph = _sc_window(256)
+    llr = _awgn(dev, 64, chain.n_vars, 2.75, seed=4)
+    for traced in (True, False):
+        seen = []
+        monkeypatch.setattr(profiling, "profiling", lambda: traced)
+        scldpc.sliding_window_decode(chain, llr, W=6, iters=20, device=dev,
+                                     on_window=lambda t, res: seen.append(res.iterations.cpu()))
+        record = profiling.recent_records("scldpc.sliding_window")[-1]
+        assert record[0]["counts"] == {"waits": 1}
+        spans = record[1:]
+        assert len(spans) == len(seen) == chain.L
+        for s, its in zip(spans, seen):
+            assert s["counts"] == {"windows": 1, "kernel": 1, "iterations": int(its.max()),
+                                   "edge_iterations": int(its.sum()) * graph.n_edges}
+            assert (s["device_s"] > 0) if traced else s["device_s"] is None
 
 
 def _check_pairhmm(dev, xs, ys, Lmax):

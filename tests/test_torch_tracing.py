@@ -15,7 +15,7 @@ two buckets. Held here:
   has device seconds; under a CPU profiler every span is a
   ``user_annotation`` range of the exported trace, nested as the record
   says;
-- the ring keeps the last 256 trials;
+- the ring keeps the last ``RING`` (4,096) trials;
 - an SC-LDPC decode call (``ops/scldpc.py``) closes a record of its own
   root, ``scldpc.sliding_window`` or ``scldpc.pipeline``, with one
   ``scldpc.window`` span per window BP whose ``iterations``,
@@ -37,6 +37,7 @@ from dna_ldpc_tpu_torch.models.blocked import dna_storage_blocked
 from dna_ldpc_tpu_torch.models.scldpc import couple
 from dna_ldpc_tpu_torch.ops import bp as t_bp
 from dna_ldpc_tpu_torch.ops import scldpc as t_sc
+from dna_ldpc_tpu_torch.ops import window_bp
 from dna_ldpc_tpu_torch.ops.msa.align import CONSISTENCY_ITERS
 from dna_ldpc_tpu_torch.pipeline import decode as t_decode
 from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
@@ -219,7 +220,7 @@ def test_ring_keeps_the_last_256_trials():
         with profiling.span("trial", root=True):
             profiling.count("k", k)
     trials = profiling.recent_trials()
-    assert len(trials) == profiling.RING == 256
+    assert len(trials) == profiling.RING == 4096
     assert [t[0]["counts"]["k"] for t in trials] == list(range(44, profiling.RING + 44))
 
 
@@ -257,16 +258,16 @@ def test_sc_decode_closes_a_record_of_its_windows(monkeypatch, decoder, root, wi
         raise AssertionError(f"a record_function range {name!r} was opened with no profiler recording")
 
     seen = []
-    decode = t_sc.bp_decode_generic
+    decode = window_bp.bp_decode_generic
 
-    def keep(graph, x, max_iter):
-        res = decode(graph, x, max_iter=max_iter)
+    def keep(graph, x, max_iter, early_stop=True):
+        res = decode(graph, x, max_iter=max_iter, early_stop=early_stop)
         seen.append((graph.n_edges, res.iterations))
         return res
 
     monkeypatch.setattr(t_bp, "wait", on_a_card)
     monkeypatch.setattr(t_sc, "wait", on_a_card)
-    monkeypatch.setattr(t_sc, "bp_decode_generic", keep)
+    monkeypatch.setattr(window_bp, "bp_decode_generic", keep)   # the CPU's window BP
     monkeypatch.setattr(torch.autograd.profiler, "record_function", no_range)
     trials = profiling.recent_trials()
     getattr(t_sc, decoder)(chain, llr, SC_W, SC_ITERS, device="cpu")
