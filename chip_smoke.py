@@ -27,10 +27,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    — every codeword must be recovered, through K1, K2 and ``merge_dp``
    (every launch count is reset just before and read just after), with at
    most 1 % of the MSA clusters handed to the host aligner;
-6. the same reads with ``DNA_LDPC_DEVICE_MSA=0`` (the host-aligner MSA
-   flow) must give the same ``fail_first``, ``fail_final`` and
-   ``n_anneal_iters``; the number of LLR-table entries that differ is
-   printed;
+6. phase 5's MSA clusters, as ``align_clusters`` received them, through
+   the host-aligner flow (``_align_clusters_fused``: K2 and the
+   consistency kernel on the card, the host C++ aligner) on the card:
+   every row must de-gap to its read; the rows that differ from the
+   device flow's are printed;
 7. the merge kernel of the device MSA against its twin on a bucket-8
    batch of 512 clusters (reads as in phase 3, Lmax = 160, Cmax = 192),
    codes and positions bit-equal: ``merge_dp`` (BuildPost + MEA DP + walk
@@ -62,11 +63,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     trial's 4,285 take too long for this script, ``PERF.md`` §5): one
     ``align()``
     per mixed cluster, K2 launched once per cluster on the card, the host
-    C++ aligner after it. The LLR entries that differ from phase 6's rows
-    are printed (the consistency sums run on the CPU here, in a ``bmm`` on
-    the card there), and phase 6's table with these rows spliced in must
-    decode to phase 6's ``fail_first``, ``fail_final`` and
-    ``n_anneal_iters``; the seconds per cluster of each stage (the
+    C++ aligner after it. The LLR entries that differ from phase 5's rows
+    are printed (the consistency sums run on the CPU and the joins in the
+    host aligner here, both on the card there), and phase 5's table with
+    these rows spliced in must decode to phase 5's ``fail_first``,
+    ``fail_final`` and ``n_anneal_iters``; the seconds per cluster of each stage (the
     pre-filter, the aligner and, inside it, ``align()``'s pair-HMM, EA,
     consistency and host aligner, counting) are printed;
 11. (a) the general-table pair-HMM (plain torch) with the default tables on
@@ -89,8 +90,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     two: ``fail_first``, ``fail_final`` and ``n_anneal_iters`` must be those
     the JAX package's decode gives on the same reads on the CPU
     (``STRESS_REFERENCE``). Then the lowered count ``STRESS_READS``:
-    ``n_anneal_iters > 0``, ``fail_final == []``, and the
-    ``DNA_LDPC_DEVICE_MSA=0`` run's outcome. The pool's failures set in
+    ``n_anneal_iters > 0`` and ``fail_final == []``. The pool's failures set in
     abruptly and not monotonically in the read count, so the counts are
     fixed, not searched for;
 15. SC-LDPC windowed decoding on the card (``ops/scldpc.py``: the windows'
@@ -600,10 +600,10 @@ def _simulator_phase(dev, clock_mhz: float) -> int:
     return k1_launches
 
 
-def _per_cluster_phase(dev, reads, quals, cws, llr_host, res0) -> list[list[str]]:
+def _per_cluster_phase(dev, reads, quals, cws, llr_dev, res) -> list[list[str]]:
     """Phase 10: the per-cluster route (``aligner=msa_aligner``) over the
     reads of the first PER_CLUSTER_STRANDS strands of phase 5's trial; its
-    LLR rows spliced into phase 6's table must decode to phase 6's
+    LLR rows spliced into phase 5's table must decode to phase 5's
     outcome. Returns the clusters it aligned (pre-filter survivors)."""
     import numpy as np
     import torch
@@ -631,16 +631,16 @@ def _per_cluster_phase(dev, reads, quals, cws, llr_host, res0) -> list[list[str]
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, pairs = pairhmm_cuda.launches, pairhmm_cuda.pairs
-    spliced = llr_host.copy()
+    spliced = llr_dev.copy()
     spliced[:PER_CLUSTER_STRANDS] = table[:PER_CLUSTER_STRANDS]
-    n_diff = int((spliced != llr_host).sum())
+    n_diff = int((spliced != llr_dev).sum())
     _, fail_first, fail_final, n_iters = trial_decode.anneal_decode(
         trial_decode.deployed_graph(), spliced.T.copy(), cws, config)
     print(f"[10] per-cluster route (compute_trial_llrs(aligner=msa_aligner): one align() per mixed cluster, its "
           f"pair-HMM on the card) on strands 0-{PER_CLUSTER_STRANDS - 1}: {len(block.payloads)} reads, "
           f"{len(clusters)} MSA clusters, K2 launches {launches} for {pairs} pairs, {wall:.2f} s "
-          f"({1e3 * wall / max(len(clusters), 1):.1f} ms per cluster); LLR entries that differ from phase 6's rows: "
-          f"{n_diff} of {spliced[:PER_CLUSTER_STRANDS].size}; phase 6's table with these rows decodes to fail_first "
+          f"({1e3 * wall / max(len(clusters), 1):.1f} ms per cluster); LLR entries that differ from phase 5's rows: "
+          f"{n_diff} of {spliced[:PER_CLUSTER_STRANDS].size}; phase 5's table with these rows decodes to fail_first "
           f"{fail_first}, fail_final {fail_final}, n_anneal_iters {n_iters}")
     # where a cluster's time goes (host clock): cluster_llr's stages, and align()'s inside "msa"
     # ("pairhmm": K2's launch, the download and bf16 rounding of its posteriors)
@@ -651,8 +651,8 @@ def _per_cluster_phase(dev, reads, quals, cws, llr_host, res0) -> list[list[str]
         raise AssertionError(f"the block holds {len(clusters)} MSA clusters, fewer than 1000")
     if (launches, pairs) != (len(clusters), sum(len(c) * (len(c) - 1) // 2 for c in clusters)):
         raise AssertionError("the per-cluster route did not launch K2 once per MSA cluster")
-    if (fail_first, fail_final, n_iters) != (res0.fail_first, res0.fail_final, res0.n_anneal_iters):
-        raise AssertionError("the per-cluster rows do not decode to phase 6's outcome")
+    if (fail_first, fail_final, n_iters) != (res.fail_first, res.fail_final, res.n_anneal_iters):
+        raise AssertionError("the per-cluster rows do not decode to phase 5's outcome")
     return clusters
 
 
@@ -1269,6 +1269,15 @@ def main() -> int:
         return llr_tables[-1]
 
     trial_decode.compute_trial_llrs = capture_llrs
+    # the clusters the trial hands align_clusters, and the device flow's rows (phase 6)
+    msa_calls = []
+    align_clusters = msa_align.align_clusters
+
+    def capture_msa(clusters, *args, **kwargs):
+        msa_calls[:] = [(clusters, align_clusters(clusters, *args, **kwargs))]
+        return msa_calls[0][1]
+
+    msa_align.align_clusters = capture_msa
 
     def run_trial(reads=reads, quals=quals):
         """decode_trial of ``cws`` on the card with every launch count reset
@@ -1302,20 +1311,24 @@ def main() -> int:
     if n_fb > 0.01 * n_msa:
         raise AssertionError(f"{n_fb} of {n_msa} MSA clusters fell back to the host aligner")
 
-    # ---- 6. the same reads through the host-aligner MSA flow ----------------
-    os.environ["DNA_LDPC_DEVICE_MSA"] = "0"
-    try:
-        res0, llr_host, launches0, _, _, wall0 = run_trial()
-    finally:
-        del os.environ["DNA_LDPC_DEVICE_MSA"]
-    n_diff = int((llr_host != llr_dev).sum())
-    print(f"[6] trial (DNA_LDPC_DEVICE_MSA=0): fail_first {res0.fail_first}, fail_final "
-          f"{res0.fail_final}, n_anneal_iters {res0.n_anneal_iters}, wall {wall0:.2f} s, launches "
-          f"{launches0}; LLR-table entries that differ from phase 5: {n_diff} of {llr_dev.size}")
-    print("[6] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in res0.phase_times.items()))
-    for name in ("fail_first", "fail_final", "n_anneal_iters"):
-        if getattr(res0, name) != getattr(res, name):
-            raise AssertionError(f"{name} differs between the device MSA and the host-aligner flow")
+    # ---- 6. phase 5's MSA clusters through the host-aligner flow -------------
+    clusters5, rows5 = msa_calls[0]
+    stages6 = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows6 = msa_align._align_clusters_fused(clusters5, msa_align.REFINE_ITERS, msa_align.CONSISTENCY_ITERS, 0, dev,
+                                            stages6)
+    torch.cuda.synchronize()
+    wall6 = time.time() - t0
+    for seqs, rows in zip(clusters5, rows6):
+        if [r.replace("-", "") for _, r in rows] != list(seqs) or len({len(r) for _, r in rows}) > 1:
+            raise AssertionError("a row of the host-aligner flow does not de-gap to its read")
+    multi = [c for c, seqs in enumerate(clusters5) if len(seqs) >= 2]
+    rows_diff = sum(a != b for c in multi for a, b in zip(rows6[c], rows5[c]))
+    print(f"[6] phase 5's {len(multi)} MSA clusters through the host-aligner flow (_align_clusters_fused) on the "
+          f"card: {rows_diff} of {sum(len(clusters5[c]) for c in multi)} aligned rows differ from the device flow's, "
+          f"in {sum(rows6[c] != rows5[c] for c in multi)} clusters; {wall6:.2f} s, stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stages6.items()))
 
     # ---- 7. the merge kernel against its twin --------------------------------
     nb, C7, Cmax = 8, 512, Lmax + device_msa.COLUMN_SLACK
@@ -1373,7 +1386,7 @@ def main() -> int:
     k1_sim_launches = _simulator_phase(dev, clock_mhz)
 
     # ---- 10. the per-cluster route on the first quarter of the strands -------
-    msa_clusters = _per_cluster_phase(dev, reads, quals, cws, llr_host, res0)
+    msa_clusters = _per_cluster_phase(dev, reads, quals, cws, llr_dev, res)
 
     # ---- 11. the general-table pair-HMM and ensembles -------------------------
     _general_tables_phase(dev, [a[:512] for a in (X, Y, lx, ly)], post_k, k2_ms, xs, ys)
@@ -1407,17 +1420,8 @@ def main() -> int:
             raise AssertionError(f"{n_reads} reads not recovered: fail_final {rs.fail_final}")
     if rs.n_anneal_iters == 0:
         raise AssertionError(f"{STRESS_READS} reads did not make the trial anneal")
-    os.environ["DNA_LDPC_DEVICE_MSA"] = "0"
-    try:
-        rs0, _, _, _, _, ws0 = run_trial(sreads, squals)
-    finally:
-        del os.environ["DNA_LDPC_DEVICE_MSA"]
-    print(f"[14] stress point at {n_reads} reads, DNA_LDPC_DEVICE_MSA=0: fail_first {rs0.fail_first}, fail_final "
-          f"{rs0.fail_final}, n_anneal_iters {rs0.n_anneal_iters}, wall {ws0:.2f} s; annealing rounds "
-          f"{rs.phase_times['second_decode']:.4f} s on the card (second_decode)")
-    for name in ("fail_first", "fail_final", "n_anneal_iters"):
-        if getattr(rs0, name) != getattr(rs, name):
-            raise AssertionError(f"stress point: {name} differs between the device MSA and the host-aligner flow")
+    print(f"[14] stress point at {n_reads} reads: annealing rounds {rs.phase_times['second_decode']:.4f} s on the "
+          f"card (second_decode)")
     # ---- 15. SC-LDPC windowed decoders; 16. multi-process BP ---------------
     t15 = time.time()
     window_bp_row = _scldpc_phase(dev, clock_mhz)

@@ -3,16 +3,14 @@
 Port of ``dna_ldpc_tpu/ops/msa/align.py``: the host pieces (EA
 distances, UPGMA5 join order, guide-tree permutations and Newick output,
 the MEA DP with its traceback, the profile machinery), the per-cluster
-``align()``, and ``align_clusters`` in its two device configurations:
-
-- the default, ``_align_clusters_device``: the pair-HMM kernel, the
-  consistency transform, and the progressive joins and refinement
-  (``device_msa.py``, with the merge kernel) all on the device; only the
-  column maps leave it;
-- ``DNA_LDPC_DEVICE_MSA=0``, ``_align_clusters_fused``: the pair-HMM
-  kernel and the consistency transform on the device, the progressive and
-  refine stages in the host C++ aligner. The device flow also hands it the
-  clusters it does not take (more than 32 reads, column overflow).
+``align()``, and ``align_clusters``: the fully device-resident MSA
+(``_align_clusters_device``: pair-HMM kernel, consistency transform,
+progressive joins and refinement with the merge kernel; only the column
+maps leave the card), which hands the clusters it cannot take (more than
+32 reads, reads past the column maps' bound, column overflow) to
+``_align_clusters_fused``: K2 and the transform on the device, the
+progressive and refine stages in the host C++ aligner. Both run K2 through
+``_pairs_k2`` and the transform through ``consistency.transform_pairs``.
 
 ``align()`` takes one cluster: its posteriors from ``batch_posteriors`` on
 ``device`` (K2 for the default tables), EA distances and the consistency
@@ -42,7 +40,7 @@ import torch
 from ... import native_lib
 from ...utils.device import DEFAULT_DEVICE, require_device
 from ...utils.profiling import HOST, count, span, tracing, wait
-from .consistency import consistency_core, transform_work
+from .consistency import consistency_core, transform_chunk, transform_pairs, transform_work
 from . import pairhmm
 from .pairhmm import batch_posteriors, k2_posteriors, padded_lmax
 
@@ -490,21 +488,17 @@ def align_clusters(
     """Align many clusters with the device stages batched across clusters
     on ``device``. Results match per-cluster ``align()``.
 
-    The default is the fully device-resident MSA
-    (``_align_clusters_device``); ``DNA_LDPC_DEVICE_MSA=0`` selects the
-    flow that feeds the host C++ aligner (``_align_clusters_fused``), as
-    in the JAX package (``dna_ldpc_tpu/ops/msa/align.py:554-566``).
-    ``timings`` accumulates seconds per stage; the whole is the span
-    ``msa``."""
+    The fully device-resident MSA (``_align_clusters_device``), which
+    hands the clusters it cannot take to the host C++ aligner
+    (``_align_clusters_fused``). ``timings`` accumulates seconds per
+    stage; the whole is the span ``msa``."""
     global msa_clusters
     require_device(device)
     if timings is None:
         timings = {}
     msa_clusters += sum(1 for seqs in clusters if len(seqs) >= 2)
     with span("msa"):
-        if os.environ.get("DNA_LDPC_DEVICE_MSA", "1") != "0":
-            return _align_clusters_device(clusters, refine_iters, consistency_iters, seed, device, timings)
-        return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
+        return _align_clusters_device(clusters, refine_iters, consistency_iters, seed, device, timings)
 
 
 def _sync(dev: torch.device) -> None:
@@ -524,6 +518,28 @@ def _count_transform(clusters, iters: int) -> None:
             flops, nbytes = transform_work([len(q) for q in seqs], iters)
             count("flops", flops)
             count("bytes", nbytes)
+
+
+def _pairs_k2(clusters, order: list[int], Lmax: int, dev: torch.device, timings: dict):
+    """K2 over every pair of the clusters in ``order``, in cluster_pairs
+    order: the pair lists (span ``msa.pairs``, host) and the kernel
+    (``msa.k2``), both under the ``timings`` key "pairhmm". Returns
+    (posteriors [P, Lmax, Lmax] bf16 on ``dev`` or None, EA scores [P],
+    cluster -> its (lo, hi) rows)."""
+    with span("msa.pairs", kind=HOST, timings=timings, key="pairhmm"):
+        pair_span: dict[int, tuple[int, int]] = {}
+        xs: list[str] = []
+        ys: list[str] = []
+        for c in order:
+            seqs = clusters[c]
+            lo = len(xs)
+            for i, j in cluster_pairs(len(seqs)):
+                xs.append(seqs[i])
+                ys.append(seqs[j])
+            pair_span[c] = (lo, len(xs))
+    with span("msa.k2", timings=timings, key="pairhmm"):
+        posts, ea_all = k2_posteriors(xs, ys, Lmax, dev) if xs else (None, None)
+    return posts, ea_all, pair_span
 
 
 def _align_clusters_device(
@@ -547,13 +563,12 @@ def _align_clusters_device(
        consistency transform, and ``start_msa_batch`` runs every
        progressive join and refinement iteration as batched merges.
 
-    Clusters larger than the top bucket, or whose alignment overflows the
-    device column budget, go through ``_align_clusters_fused`` (K2 and the
-    consistency transform on the device, the host C++ aligner).
-    Spans and ``timings`` keys: "pairhmm" (``msa.pairs``, host: the pair
-    lists; ``msa.k2``), per batch (``msa.batch``) "consistency"
-    (``msa.assemble``, host: the pair ids and masks; ``msa.consistency``:
-    uploads, gather, transform), "msa_device" (``msa.joins``, host: UPGMA;
+    Clusters above the top bucket or whose alignment overflows the column
+    budget, or all where a read passes the column maps' bound, go through
+    ``_align_clusters_fused``. Spans and ``timings`` keys: "pairhmm"
+    (``msa.pairs``, host: the pair lists; ``msa.k2``), per batch
+    (``msa.batch``) "consistency" (``msa.assemble``, host: the pair ids
+    and masks; ``msa.consistency``: uploads, gather, transform), "msa_device" (``msa.joins``, host: UPGMA;
     ``msa.device``: the progressive and refine merges), "msa_collect"
     (``msa.collect``: the column maps' download, ``msa.rows``), plus the
     fallback flow's keys under ``msa.fallback`` when it runs."""
@@ -579,21 +594,8 @@ def _align_clusters_device(
     if Lmax > 254:  # the JAX package's column-map bound (uint8 transport)
         return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
 
-    with span("msa.pairs", kind=HOST, timings=timings, key="pairhmm"):
-        pair_span: dict[int, tuple[int, int]] = {}
-        xs: list[str] = []
-        ys: list[str] = []
-        for nb in sorted(by_bucket):
-            for c in by_bucket[nb]:
-                seqs = clusters[c]
-                lo = len(xs)
-                for i, j in cluster_pairs(len(seqs)):
-                    xs.append(seqs[i])
-                    ys.append(seqs[j])
-                pair_span[c] = (lo, len(xs))
-    with span("msa.k2", timings=timings, key="pairhmm"):
-        if xs:
-            posts, ea_all = k2_posteriors(xs, ys, Lmax, dev)
+    order = [c for nb in sorted(by_bucket) for c in by_bucket[nb]]
+    posts, ea_all, pair_span = _pairs_k2(clusters, order, Lmax, dev, timings)
 
     for nb in sorted(by_bucket):
         members = by_bucket[nb]
@@ -620,9 +622,8 @@ def _align_clusters_device(
                     ids_t, mask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
                     inv_n_t = torch.as_tensor(inv_n, device=dev)
                     wait(dev, 3)
-                    P = assemble_transform(
-                        posts, ids_t, mask_t, inv_n_t, nb, consistency_iters, len(batch), Lmax, lengths
-                    )
+                    P = assemble_transform(posts, ids_t, mask_t, inv_n_t, nb, consistency_iters, len(batch), Lmax,
+                                           lengths)
                     if consistency_iters and nb >= 3:
                         _count_transform([clusters[c] for c in batch], consistency_iters)
                     _sync(dev)
@@ -633,9 +634,7 @@ def _align_clusters_device(
                         for c in batch
                     ]
                 with span("msa.device", timings=timings, key="msa_device"):
-                    job = start_msa_batch(
-                        P, [clusters[c] for c in batch], joins_list, nb, Lmax, refine_iters, seed
-                    )
+                    job = start_msa_batch(P, [clusters[c] for c in batch], joins_list, nb, Lmax, refine_iters, seed)
                     del P
                     _sync(dev)
 
@@ -651,9 +650,8 @@ def _align_clusters_device(
     if fallback:
         fallback_clusters += len(fallback)
         with span("msa.fallback"):
-            rows = _align_clusters_fused(
-                [clusters[c] for c in fallback], refine_iters, consistency_iters, seed, device, timings
-            )
+            rows = _align_clusters_fused([clusters[c] for c in fallback], refine_iters, consistency_iters, seed, device,
+                                         timings)
         for c, r in zip(fallback, rows):
             out[c] = r
     return out
@@ -667,88 +665,53 @@ def _align_clusters_fused(
     device,
     timings: dict,
 ) -> list[list[tuple[int, str]]]:
-    """The ``DNA_LDPC_DEVICE_MSA=0`` flow, counterpart of the JAX
-    package's ``_align_clusters_fused``: K2 over every pair and the
-    consistency transform on ``device`` (module docstring), the
-    progressive and refine stages in the host C++ aligner. Spans and
-    ``timings`` keys: "pairhmm" (``msa.pairs``, host; ``msa.k2``: kernel +
-    EA download), "consistency" (``msa.consistency``: transform +
-    posterior download, the aligner's jobs handed out) and
-    "progressive_refine" (``msa.host_aligner``: waiting for the host
-    aligner after the last batch)."""
+    """The host-aligner flow, counterpart of the JAX package's
+    ``_align_clusters_fused``: K2 and the consistency transform (into
+    float32, clusters of one size in batches of ``transform_chunk``) on
+    ``device``, the progressive and refine stages in the host C++ aligner.
+    Spans and ``timings`` keys: "pairhmm" (``msa.pairs``, host; ``msa.k2``),
+    "consistency" (``msa.consistency``: transform + posterior download,
+    the aligner's jobs handed out) and "progressive_refine"
+    (``msa.host_aligner``: waiting for the host aligner)."""
     dev = torch.device(device)
-    out: list = [None] * len(clusters)
-    multi = []
-    for c, seqs in enumerate(clusters):
-        if len(seqs) < 2:
-            out[c] = [(0, seqs[0])] if seqs else []
-        else:
-            multi.append(c)
+    out: list = [[(0, seqs[0])] if len(seqs) == 1 else [] for seqs in clusters]
+    multi = [c for c, seqs in enumerate(clusters) if len(seqs) >= 2]
     if not multi:
         return out
+    by_n: dict[int, list[int]] = {}
+    for c in multi:
+        by_n.setdefault(len(clusters[c]), []).append(c)
 
     # ---- 1. pair-HMM over every pair of every cluster -------------------
-    with span("msa.pairs", kind=HOST, timings=timings, key="pairhmm"):
-        pair_span: dict[int, tuple[int, int]] = {}
-        xs: list[str] = []
-        ys: list[str] = []
-        for c in multi:
-            seqs = clusters[c]
-            lo = len(xs)
-            for i, j in cluster_pairs(len(seqs)):
-                xs.append(seqs[i])
-                ys.append(seqs[j])
-            pair_span[c] = (lo, len(xs))
-        Lmax = padded_lmax(max(len(s) for s in xs + ys))
-    with span("msa.k2", timings=timings, key="pairhmm"):
-        posts, ea_all = k2_posteriors(xs, ys, Lmax, dev)
+    Lmax = padded_lmax(max(len(s) for c in multi for s in clusters[c]))
+    posts, ea_all, pair_span = _pairs_k2(clusters, multi, Lmax, dev, timings)
 
-    # ---- 2-3. EA distances, consistency batches, host aligner -----------
+    # ---- 2-3. consistency batches, EA distances, host aligner -----------
     futures = {}
-
-    def crops(c, mats):
-        lo, _ = pair_span[c]
-        return [
-            mats[k, : len(xs[lo + k]), : len(ys[lo + k])] for k in range(len(mats))
-        ]
-
-    def submit(pool, c, pair_posts):
-        lo, hi = pair_span[c]
-        futures[c] = pool.submit(
-            align, clusters[c], refine_iters, 0, seed, pair_posts,
-            pair_dists=_ea_dists(clusters[c], ea_all[lo:hi]), device=device,
-        )
-
-    by_n: dict[int, list[int]] = {}
     with ThreadPoolExecutor(max_workers=N_WORKERS) as pool:
         with span("msa.consistency", timings=timings, key="consistency"):
-            for c in multi:
-                n = len(clusters[c])
-                if n >= 3 and consistency_iters:
-                    by_n.setdefault(n, []).append(c)
-                else:  # no transform: the bf16 posteriors go to the aligner as they are
-                    lo, hi = pair_span[c]
-                    mats = posts[lo:hi].to(torch.float32).cpu().numpy()
-                    wait(dev)
-                    submit(pool, c, crops(c, mats))
             for n in sorted(by_n):
                 members = by_n[n]
-                npair = n * (n - 1) // 2
-                # the plain version's block tensor, its product and the updated copy, f32
-                cap = max(1, pairhmm.BUDGET_BYTES // (4 * 4 * n * n * Lmax * Lmax))
+                pairs = cluster_pairs(n)
+                cap = transform_chunk(n, Lmax, consistency_iters)
                 for blo in range(0, len(members), cap):
                     batch = members[blo : blo + cap]
-                    idx = torch.as_tensor(
-                        np.concatenate([np.arange(*pair_span[c]) for c in batch]), device=dev
-                    )
-                    mats = posts[idx].to(torch.float32).view(len(batch), npair, Lmax, Lmax)
+                    ids = torch.as_tensor(np.concatenate([np.arange(*pair_span[c]) for c in batch]), device=dev)
                     inv_n = torch.full((len(batch),), 1.0 / n, dtype=torch.float32, device=dev)
                     lengths = [[len(q) for q in clusters[c]] for c in batch]
-                    res = consistency_core(mats, inv_n, n, consistency_iters, lengths).cpu().numpy()
+                    res = torch.zeros((len(batch), len(pairs), Lmax, Lmax), dtype=torch.float32, device=dev)
+                    transform_pairs(posts, ids, inv_n, lengths, n, consistency_iters, res)
+                    res = res.cpu().numpy()
                     wait(dev, 2)  # the index upload, the download
-                    _count_transform([clusters[c] for c in batch], consistency_iters)
+                    if n >= 3 and consistency_iters:
+                        _count_transform([clusters[c] for c in batch], consistency_iters)
                     for bi, c in enumerate(batch):
-                        submit(pool, c, crops(c, res[bi]))
+                        seqs, (lo, hi) = clusters[c], pair_span[c]
+                        futures[c] = pool.submit(
+                            align, seqs, refine_iters, 0, seed,
+                            [res[bi, k, : len(seqs[i]), : len(seqs[j])] for k, (i, j) in enumerate(pairs)],
+                            pair_dists=_ea_dists(seqs, ea_all[lo:hi]), device=device,
+                        )
         with span("msa.host_aligner", kind=HOST, timings=timings, key="progressive_refine"):
             for c, fut in futures.items():
                 out[c] = fut.result()

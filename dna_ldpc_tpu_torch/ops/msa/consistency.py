@@ -22,6 +22,8 @@ blocks, no lower triangle. The host hands it the members' lengths
 (``lengths`` [C, nb], 0 for a pad member) and a work list of output tiles
 (``work_list``), in one pinned, non-blocking upload. ``consistency_core_ref``
 keeps the block product above as the plain version: CPU tensors take it.
+Both MSA flows transform the pairs they name in K2's pair tensor through
+one entry, ``transform_pairs``, which alone sizes the chunks.
 
 ``consistency_clusters`` is the public batched entry: numpy posteriors of
 many clusters in, transformed numpy posteriors out, routed as the JAX
@@ -42,6 +44,7 @@ import torch
 
 from ...utils.device import DEFAULT_DEVICE, full_f32_matmul, require_device
 from ...utils.profiling import count, device_time, wait
+from . import pairhmm
 from .mea_cuda import _one_device
 from .pairhmm import MIN_SPARSE_PROB
 
@@ -180,8 +183,7 @@ def transform_rounds(src, ids, dst, inv_n, lengths, nb: int, iters: int) -> None
     if dst.dtype not in (torch.float32, torch.bfloat16) or inv_n.dtype != torch.float32:
         raise ValueError("dst must be float32 or bf16, inv_n float32")
     work = work_list(lengths)
-    meta = torch.from_numpy(np.concatenate([lengths.ravel(), work.ravel()]).astype(np.int32))
-    meta = meta.pin_memory().to(dev, non_blocking=True)
+    meta = _upload(np.concatenate([lengths.ravel(), work.ravel()]).astype(np.int32), dev)
     lens_t, work_t = meta[: C * nb], meta[C * nb :]
     tmp = [torch.empty((C, npair, L, L), dtype=torch.float32, device=dev) for _ in range(min(iters - 1, 2))]
     inv_n = inv_n.contiguous()
@@ -201,6 +203,48 @@ def transform_rounds(src, ids, dst, inv_n, lengths, nb: int, iters: int) -> None
     if len(work):
         launches += iters
         count("launches", iters)
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` on ``dev``: to the card in one pinned copy, without a wait."""
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def transform_chunk(nb: int, L: int, iters: int) -> int:
+    """Clusters of bucket ``nb`` a chunk of the transform takes: as many as
+    the kernel's float32 iterates fit in ``pairhmm.BUDGET_BYTES``."""
+    iterates = max(1, min(iters - 1, 2))
+    return max(1, pairhmm.BUDGET_BYTES // (iterates * (nb * (nb - 1) // 2) * L * L * 4))
+
+
+def transform_pairs(posts, ids, inv_n, lengths, nb: int, iters: int, dst) -> None:
+    """Write into the zeroed ``dst`` ([C, npair, L, L] view on the device,
+    bf16 or float32) the transform of the pairs that ``ids`` (int64
+    [C * npair]) names in the pair tensor ``posts`` [P, L, L], rounded
+    through bf16; ``inv_n`` [C] float32 1/n_true. ``lengths`` (host ints
+    [C, nb], 0 for a pad member) alone decides which slots are true: those
+    whose members both have a length. With ``iters`` = 0 or ``nb`` < 3 the
+    true slots are only gathered. On the card the kernel reads the bf16
+    posteriors at ``ids`` itself (``transform_rounds``), elsewhere the
+    gathered pairs go through ``consistency_core_ref``: in chunks of
+    ``transform_chunk`` clusters either way."""
+    C, L = inv_n.shape[0], posts.shape[-1]
+    npair = nb * (nb - 1) // 2
+    ii, jj = np.triu_indices(nb, k=1)
+    lengths = np.asarray(lengths, np.int32)
+    posts = posts.to(torch.bfloat16)
+    transform = bool(iters) and nb >= 3
+    ck = transform_chunk(nb, L, iters)
+    for lo in range(0, C, ck):
+        hi = min(C, lo + ck)
+        sl, lens = slice(lo * npair, hi * npair), lengths[lo:hi]
+        if transform and posts.device.type == "cuda":
+            transform_rounds(posts, ids[sl].to(torch.int64), dst[lo:hi], inv_n[lo:hi], lens, nb, iters)
+            continue
+        true = _upload(((lens[:, ii] > 0) & (lens[:, jj] > 0)).ravel(), posts.device)
+        pm = torch.where(true[:, None, None], posts[ids[sl]], 0).view(hi - lo, npair, L, L)
+        dst[lo:hi] = consistency_core_ref(pm.float(), inv_n[lo:hi], nb, iters, lens) if transform else pm
 
 
 def transform_work(lengths, iters: int) -> tuple[int, int]:

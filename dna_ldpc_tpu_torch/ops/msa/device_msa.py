@@ -44,9 +44,8 @@ import numpy as np
 import torch
 
 from ...utils.profiling import HOST, count, span, wait
-from . import pairhmm
 from .align import CONVERGE_AFTER, refine_mask_table
-from .consistency import consistency_core, transform_rounds
+from .consistency import consistency_core, transform_pairs
 from .mea_cuda import CB, CX, CY, merge_walk
 
 # cluster-size buckets of the device MSA (n pads up to the next bucket;
@@ -233,45 +232,29 @@ def _msa_refine(Pblock, cpos, width, frozen, ovf, rA, rows_pc, Cmax: int, L: int
 def assemble_transform(posts, ids, mask, inv_n, nb: int, iters: int, C_cap: int, L: int, lengths=None):
     """Gather a batch's pair posteriors from the device-resident pair
     tensor ``posts`` [P, L, L] (``ids`` [C_cap * npair] flat pair
-    indices, ``mask`` covering pad slots), bf16-round them, and apply the
-    consistency transform for buckets of >= 3 sequences (``inv_n`` [C_cap]
-    = 1/n_true over the bucket-padded zero blocks). ``lengths`` (host ints
-    [C_cap, nb]): the members' read lengths, 0 for pad members and pad
-    clusters (None: nb members of length L each). Returns
-    [C_cap, npair, L+1, L+1] bf16 with a zero gap row/col.
+    indices), bf16-round them, and apply the consistency transform for
+    buckets of >= 3 sequences (``inv_n`` [C_cap] = 1/n_true over the
+    bucket-padded zero blocks). Returns [C_cap, npair, L+1, L+1] bf16 with
+    a zero gap row/col.
 
-    On the card the transform is the consistency kernel
-    (``consistency.transform_rounds``): its first round reads the bf16
-    posteriors at ``ids`` itself, so the gather, the pad mask and the casts
-    fold into its loads, the members' pairs are the ones ``lengths`` names
-    (``mask`` must agree), and its last round writes ``out``. Elsewhere the
-    gather and ``consistency_core`` run as plain torch, in cluster chunks
-    sized from the byte budget."""
+    One input decides which slots are true. Given ``lengths`` (host ints
+    [C_cap, nb], 0 for pad members and pad clusters), ``mask`` is not read
+    and ``consistency.transform_pairs`` takes the slots whose members both
+    have a length. Without ``lengths`` (the JAX package's signature)
+    ``mask`` [C_cap * npair] decides, holes among present members
+    included: the masked slots are zeroed, and the float32 pairs go
+    through ``consistency_core`` with every member of length L, on the
+    card as on the CPU."""
     npair = nb * (nb - 1) // 2
     out = torch.zeros((C_cap, npair, L + 1, L + 1), dtype=torch.bfloat16, device=posts.device)
-    transform = bool(iters) and nb >= 3
     if lengths is not None:
-        lengths = np.asarray(lengths, np.int32)
-    if transform and posts.device.type == "cuda":
-        if lengths is None:
-            lengths = np.full((C_cap, nb), L, np.int32)
-        # the float32 iterates the kernel keeps between rounds
-        ck = max(1, pairhmm.BUDGET_BYTES // (max(1, min(iters - 1, 2)) * npair * L * L * 4))
-        for lo in range(0, C_cap, ck):
-            hi = min(C_cap, lo + ck)
-            transform_rounds(posts, ids[lo * npair : hi * npair].to(torch.int64), out[lo:hi, :, :L, :L],
-                             inv_n[lo:hi], lengths[lo:hi], nb, iters)
+        transform_pairs(posts, ids, inv_n, lengths, nb, iters, out[..., :L, :L])
         return out
-    # consistency_core_ref holds ~5 f32 block tensors [nb, nb, L, L] per cluster
-    ck = max(1, pairhmm.BUDGET_BYTES // (5 * nb * nb * L * L * 4)) if transform else C_cap
-    for lo in range(0, C_cap, ck):
-        hi = min(C_cap, lo + ck)
-        sel = posts[ids[lo * npair : hi * npair]]
-        sel = torch.where(mask[lo * npair : hi * npair, None, None], sel, 0)
-        pm = sel.to(torch.bfloat16).to(torch.float32).view(hi - lo, npair, L, L)
-        if transform:
-            pm = consistency_core(pm, inv_n[lo:hi], nb, iters, None if lengths is None else lengths[lo:hi])
-        out[lo:hi, :, :L, :L] = pm
+    pm = torch.where(mask[:, None, None], posts[ids], 0)
+    pm = pm.to(torch.bfloat16).to(torch.float32).view(C_cap, npair, L, L)
+    if iters and nb >= 3:
+        pm = consistency_core(pm, inv_n, nb, iters)
+    out[..., :L, :L] = pm
     return out
 
 

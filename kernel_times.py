@@ -25,9 +25,8 @@ its bound, as the others' in ``chip_smoke.py``); the consistency
 transform at the trial's buckets 4, 8 and 12 (``chip_smoke.py`` phase 17:
 the kernel's call and device time, the plain block product, the bound;
 a checkout without the kernel times its own transform there). Then
-``chip_smoke.py``'s phase-5 trial: one warm-up ``decode_trial``, then the
-device MSA and the ``DNA_LDPC_DEVICE_MSA=0`` flow twice in turns, each
-wall on the host clock ending in a synchronize.
+``chip_smoke.py``'s phase-5 trial: one warm-up ``decode_trial``, then two
+more, each wall on the host clock ending in a synchronize.
 """
 
 from __future__ import annotations
@@ -79,30 +78,23 @@ def _k2_posteriors():
 
 def trial_walls() -> dict:
     """Seconds of ``chip_smoke.py``'s phase-5 trial in the checkout on the
-    path, device MSA and host-aligner flow in turns, after a warm-up."""
+    path, twice after a warm-up."""
     import torch
 
     from dna_ldpc_tpu_torch.pipeline.decode import TrialConfig, decode_trial
     from trace_trial import smoke_trial
 
     cws, reads, quals = smoke_trial()
-    walls = {"trial_device_s": [], "trial_host_s": []}
-    for flow in ("warm-up", "trial_device_s", "trial_host_s", "trial_device_s", "trial_host_s"):
-        if flow == "trial_host_s":
-            os.environ["DNA_LDPC_DEVICE_MSA"] = "0"
-        try:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            res = decode_trial(reads, quals, cws, TrialConfig())
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        finally:
-            os.environ.pop("DNA_LDPC_DEVICE_MSA", None)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = decode_trial(reads, quals, cws, TrialConfig())
+        torch.cuda.synchronize()
+        walls.append(round(time.time() - t0, 3))
         if res.fail_final:
             raise AssertionError(f"the trial left fail_final {res.fail_final}")
-        if flow in walls:
-            walls[flow].append(round(wall, 3))
-    return walls
+    return {"trial_device_s": walls[1:]}
 
 
 def merge_times(dev) -> dict:

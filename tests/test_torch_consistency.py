@@ -269,3 +269,48 @@ def test_assemble_transform_with_lengths_is_unchanged(nb, iters):
     args = (torch.from_numpy(posts), torch.from_numpy(perm), torch.from_numpy(mask), torch.from_numpy(inv), nb,
             iters, C, L)
     assert torch.equal(t_dm.assemble_transform(*args, lengths=lens), t_dm.assemble_transform(*args))
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("n", [3, 5, 9])
+def test_transform_pairs_is_the_host_aligner_route(n, iters):
+    """``transform_pairs`` into float32, as the host-aligner flow calls it
+    (clusters of exactly n reads, every slot true, the bf16 pairs scattered
+    through a larger pair tensor with values outside the true boxes),
+    equals the route it replaced exactly: the gathered pairs' float32
+    copy through ``consistency_core`` given the lengths."""
+    rng = np.random.default_rng(10 * n + iters)
+    L, C = 24, 4
+    npair = n * (n - 1) // 2
+    lens = _bucket_lengths(rng, (n,) * C, n, 1, L)
+    P = C * npair + 5
+    posts = torch.from_numpy(rng.random((P, L, L)).astype(np.float32)).to(torch.bfloat16)
+    ids = torch.from_numpy(rng.permutation(P)[: C * npair])
+    posts[ids] = torch.from_numpy(_padded_pairs(rng, lens, L, garbage=True)).view(-1, L, L).to(torch.bfloat16)
+    inv = torch.full((C,), 1.0 / n)
+    want = t_cons.consistency_core(posts[ids].to(torch.float32).view(C, npair, L, L), inv, n, iters, lens)
+    got = torch.zeros((C, npair, L, L))
+    t_cons.transform_pairs(posts, ids, inv, lens, n, iters, got)
+    assert torch.equal(got, want)
+    assert (want > 0).any()
+
+
+@pytest.mark.parametrize("nb,iters", [(2, 2), (4, 0), (8, 0)])
+def test_transform_pairs_without_a_transform_gathers_the_true_slots(nb, iters):
+    """With ``iters`` = 0 or a bucket of 2 the entry only gathers: each
+    true slot's pair rounded through bf16, zero in every slot with a pad
+    member or of a pad cluster, into bf16 and float32 alike."""
+    rng = np.random.default_rng(nb + iters)
+    L = 24
+    lens = _bucket_lengths(rng, (nb, max(2, nb - 1)), nb, 1, L, pad_clusters=1)
+    C, npair = lens.shape[0], nb * (nb - 1) // 2
+    posts = torch.from_numpy(rng.random((C * npair + 3, L, L)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, C * npair + 3, C * npair))
+    ii, jj = np.triu_indices(nb, 1)
+    true = torch.from_numpy(((lens[:, ii] > 0) & (lens[:, jj] > 0)).ravel())
+    want = torch.where(true[:, None, None], posts[ids].to(torch.bfloat16), 0).view(C, npair, L, L)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = torch.zeros((C, npair, L, L), dtype=dtype)
+        t_cons.transform_pairs(posts, ids, torch.ones(C), lens, nb, iters, got)
+        assert torch.equal(got, want.to(dtype))
+    assert true.any() and not true.all()

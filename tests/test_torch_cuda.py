@@ -37,7 +37,7 @@ from dna_ldpc_tpu_torch.ops import bp_cuda, cluster, decoders, faid
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
 from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, msa_aligner, pairhmm, pairhmm_cuda
 from dna_ldpc_tpu_torch.ops.msa.align import (
-    _ea_dists, align, align_clusters, cluster_pairs, mea_score, upgma_join_order,
+    _align_clusters_fused, _ea_dists, align, align_clusters, cluster_pairs, mea_score, upgma_join_order,
 )
 from dna_ldpc_tpu_torch.ops.msa.ensemble import perturb_params
 from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_clusters, consistency_core
@@ -452,10 +452,10 @@ def test_edit_distance_device_matches_native(dev):
     np.testing.assert_array_equal(got, native_lib.edit_distance_batch_native(buf, offs, lens, a, b))
 
 
-def test_consistency_and_align_clusters_on_device(dev, monkeypatch):
+def test_consistency_and_align_clusters_on_device(dev):
     """The consistency transform in full f32 on the card matches the CPU
-    within 1e-5; align_clusters on the card gives the CPU's rows, through
-    the device MSA and through the host-aligner flow."""
+    within 1e-5; align_clusters (the device MSA) and the host-aligner flow
+    (``_align_clusters_fused``) on the card give the CPU's rows."""
     rng = np.random.default_rng(5)
     x = (rng.random((4, 10, 40, 40)) * (rng.random((4, 10, 40, 40)) < 0.1)).astype(np.float32)
     inv = torch.full((4,), 0.2)
@@ -465,8 +465,7 @@ def test_consistency_and_align_clusters_on_device(dev, monkeypatch):
     clusters = [_copies(rng, n) for n in (2, 3, 5, 4, 1)]
     want = align_clusters(clusters, refine_iters=10, device="cpu")
     assert align_clusters(clusters, refine_iters=10, device=dev) == want
-    monkeypatch.setenv("DNA_LDPC_DEVICE_MSA", "0")
-    assert align_clusters(clusters, refine_iters=10, device=dev) == want
+    assert _align_clusters_fused(clusters, 10, 2, 0, dev, {}) == want
 
 
 @pytest.mark.parametrize("min_device_clusters", [1, 4])
@@ -600,6 +599,59 @@ def test_consistency_kernel_matches_plain(dev, n, nb, iters):
     assert not P[:, :, L].any() and not P[:, :, :, L].any()  # the gap row and column
     assert (P.float().cpu().numpy()[:, :, :L, :L] > 0).sum() > 0
     print(f"n={n} bucket {nb} iters {iters}: mask flips at the threshold {flips} (f32), {int(off.sum())} (bf16)")
+
+
+@pytest.mark.parametrize("nb", [4, 8])
+def test_assemble_transform_without_lengths_keeps_the_mask(dev, nb):
+    """Without ``lengths`` (the JAX package's signature) the mask decides
+    on the card as on the CPU, holes among present members included: bf16
+    posteriors as K2 leaves them, random mask and ids, 2 iterations, within
+    one bf16 step of ``device="cpu"`` but where round two's mask meets an
+    iterate within 1e-6 of the threshold; the gap row and column stay
+    zero."""
+    from dna_ldpc_tpu_torch.ops.msa import consistency
+
+    rng = np.random.default_rng(40 + nb)
+    L, C, iters = 24, 5, 2
+    npair = nb * (nb - 1) // 2
+    posts = rng.random((C * npair + 3, L, L)) * (rng.random((C * npair + 3, L, L)) < 0.25)
+    posts = torch.from_numpy(np.where(posts < 0.01, 0.0, posts).astype(np.float32)).to(torch.bfloat16)
+    ids = torch.from_numpy(rng.permutation(C * npair))
+    mask = torch.from_numpy(rng.random(C * npair) < 0.8)
+    inv = torch.from_numpy((1.0 / rng.integers(3, nb + 1, C)).astype(np.float32))
+    want = device_msa.assemble_transform(posts, ids, mask, inv, nb, iters, C, L)
+    got = device_msa.assemble_transform(posts.to(dev), ids.to(dev), mask.to(dev), inv.to(dev), nb, iters, C, L)
+    bits = lambda t: t.view(torch.int16).cpu().numpy().astype(np.int32)  # noqa: E731 (non-negative values)
+    ulps = np.abs(bits(got) - bits(want))
+    pm = torch.where(mask[:, None, None], posts[ids], 0).to(torch.bfloat16).float().view(C, npair, L, L)
+    iterate = consistency.consistency_core_ref(pm, inv, nb, 1).numpy()
+    off = ulps[:, :, :L, :L] > 1
+    assert not (off & ~(np.abs(iterate - 0.01) <= 1e-6)).any(), ulps.max()
+    assert not ulps[:, :, L].any() and not ulps[:, :, :, L].any()
+    assert not got.cpu()[~mask.view(C, npair)].any() and (want.float() > 0).any()
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("n", [3, 5, 9])
+def test_host_aligner_transform_is_the_old_route(dev, n, iters):
+    """The host-aligner flow's transformed pairs on the card
+    (``transform_pairs`` into float32, clusters of exactly n reads, the
+    kernel reading the bf16 posteriors through the pair ids) are bit-equal
+    to the route it replaced: the gathered pairs' float32 copy through
+    ``consistency_core`` (the kernel reading float32)."""
+    from dna_ldpc_tpu_torch.ops.msa import consistency
+
+    rng = np.random.default_rng(7 * n + iters)
+    posts, ids, _, _, lens = _consistency_batch(rng, n, n, 160, C=4)
+    C, npair, L = lens.shape[0] - 1, n * (n - 1) // 2, 160  # the pad cluster left out
+    lens, ids, posts = lens[:C], torch.from_numpy(ids[: C * npair]).to(dev), posts.to(dev)
+    inv = torch.full((C,), 1.0 / n, device=dev)
+    old = consistency.consistency_core(posts[ids].to(torch.float32).view(C, npair, L, L), inv, n, iters, lens)
+    new = torch.zeros_like(old)
+    before = consistency.launches
+    consistency.transform_pairs(posts, ids, inv, lens, n, iters, new)
+    assert consistency.launches == before + iters
+    assert torch.equal(new, old) and (new > 0).any()
 
 
 def test_consistency_kernel_launches_no_gemm(dev):

@@ -1,11 +1,10 @@
 """MSA parity: the port's consistency transform against the JAX
 ``_consistency_core`` at HIGHEST precision (within 1e-5: the same f32
-products, summed in another order), and the port's ``align_clusters``
-and ``align`` against the JAX package's ``_align_clusters_fused`` (its
-``DNA_LDPC_DEVICE_MSA=0`` configuration, with the Pallas pair-HMM in
-interpret mode) and per-cluster ``align()``. Aligned rows must be equal.
-Without ``DNA_LDPC_DEVICE_MSA=0`` the port runs its device MSA, which
-must give the same rows."""
+products, summed in another order), and the port's host-aligner flow
+(``_align_clusters_fused``), ``align_clusters`` (its device MSA) and
+``align`` against the JAX package's ``_align_clusters_fused`` (with the
+Pallas pair-HMM in interpret mode) and per-cluster ``align()``. Aligned
+rows must be equal."""
 
 import numpy as np
 import pytest
@@ -18,6 +17,7 @@ from dna_ldpc_tpu.ops.msa.align import align as j_align
 from dna_ldpc_tpu.ops.msa.align import upgma_join_order as j_upgma
 from dna_ldpc_tpu.ops.msa.consistency import _consistency_core
 from dna_ldpc_tpu_torch.ops.msa import pairhmm, pairhmm_cuda
+from dna_ldpc_tpu_torch.ops.msa.align import _align_clusters_fused as t_fused
 from dna_ldpc_tpu_torch.ops.msa.align import align, align_clusters, upgma_join_order
 from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_core
 
@@ -60,14 +60,13 @@ def test_upgma_join_order_matches_jax():
 
 def test_align_clusters_matches_jax_fused_and_align(monkeypatch):
     monkeypatch.setenv("DNA_LDPC_PAIRHMM", "pallas")
-    monkeypatch.setenv("DNA_LDPC_DEVICE_MSA", "0")  # the host-aligner flow
     clusters = _clusters(9, (1, 2, 3, 5, 6, 4, 3, 2), 30)
     fused = _align_clusters_fused(
         clusters, refine_iters=10, consistency_iters=2, seed=0, pair_chunk=160, n_workers=2
     )
     before = pairhmm_cuda.launches
     timings = {}
-    port = align_clusters(clusters, refine_iters=10, device="cpu", timings=timings)
+    port = t_fused(clusters, 10, 2, 0, "cpu", timings)  # the host-aligner flow
     assert pairhmm_cuda.launches == before  # CPU tensors: the twin ran
     assert port == fused
     assert port == [j_align(cl, refine_iters=10) for cl in clusters]
