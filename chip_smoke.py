@@ -19,14 +19,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    the native mea_score of the bf16-rounded kernel posterior — then 6,000
    pairs, the size of one launch of the trial (the 512 are its first):
    the same tolerance against the twin, the first 512 pairs bit-equal to
-   the small batch, and the time the ``kernels`` line reports;
+   the small batch, and the time the ``kernels`` line reports; then the
+   same pairs as rows of one read table named by index (the trial's
+   route), bit-equal to the per-pair copies, and its time;
 4. the device edit distance against the native one on the same pairs
    (bit-equal);
 5. one full trial at the reference's scale: 272 codewords, 72,000
    simulated reads, ``decode_trial`` on the card through the device MSA
    — every codeword must be recovered, through K1, K2 and ``merge_dp``
    (every launch count is reset just before and read just after), with at
-   most 1 % of the MSA clusters handed to the host aligner;
+   most 1 % of the MSA clusters handed to the host aligner; a second line
+   gives the host seconds of K2's inputs (``msa.pairs``) and of ``msa.k2``
+   with its counts (``reads``: the read table's rows), as phase 13 does;
 6. phase 5's MSA clusters, as ``align_clusters`` received them, through
    the host-aligner flow (``_align_clusters_fused``: K2 and the
    consistency kernel on the card, the host C++ aligner) on the card:
@@ -417,6 +421,22 @@ def _same(a, b, what: str) -> None:
     for name in ("bits", "success", "unsat", "iterations"):
         if not torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()):
             raise AssertionError(f"{what}: {name} differs")
+
+
+def _k2_split() -> str:
+    """``_pairs_k2``'s part of the last trial: the host seconds of
+    ``msa.pairs`` (the read table and the pairs' rows) and of ``msa.k2``,
+    with the latter's counts."""
+    from dna_ldpc_tpu_torch.utils import profiling
+
+    rec = profiling.recent_trials()[-1]
+    pairs = sum(s["host_s"] for s in rec if s["name"] == "msa.pairs")
+    k2 = [s for s in rec if s["name"] == "msa.k2"]
+    counts: dict = {}
+    for s in k2:
+        for name, n in s["counts"].items():
+            counts[name] = counts.get(name, 0) + n
+    return f"msa.pairs {pairs:.4f} s (host), msa.k2 {sum(s['host_s'] for s in k2):.4f} s, msa.k2 counts {counts}"
 
 
 def _point_line(r) -> str:
@@ -1231,14 +1251,25 @@ def main() -> int:
     if not (torch.equal(post_b[:512], post_k) and torch.equal(ea_b[:512], ea_k)):
         raise AssertionError("K2 gives a pair other values in a larger batch")
     n_differ_big, ea_diff_big = int((post_b != post_rb).sum()), (ea_b - ea_rb).abs().max().item()
-    del post_b, post_rb
+    del post_rb
+    # the same pairs as the trial hands them to K2: rows of one read table, named by index
+    rows = torch.as_tensor(np.random.default_rng(4).permutation(2 * K2_TRIAL_PAIRS), device=dev)
+    codes, lengths = torch.cat([big[0], big[1]]), torch.cat([big[2], big[3]])
+    codes[rows], lengths[rows] = codes.clone(), lengths.clone()  # x of pair p at row rows[p], y at rows[P + p]
+    ia, ib = rows[:K2_TRIAL_PAIRS].int(), rows[K2_TRIAL_PAIRS:].int()
+    post_i, ea_i = pairhmm_cuda.post_ea(codes, codes, lengths, lengths, Lmax, ia, ib)
+    if not (torch.equal(post_i, post_b) and torch.equal(ea_i, ea_b)):
+        raise AssertionError("K2 by read-table index differs from K2 on per-pair copies")
+    del post_b, post_i
+    k2_ms_index = _cuda_ms(lambda: pairhmm_cuda.post_ea(codes, codes, lengths, lengths, Lmax, ia, ib), 3)
     k2_ms_big = _cuda_ms(lambda: pairhmm_cuda.post_ea(*big, Lmax), 3)
     k2_bound_big, k2_by_big = roofline.k2_bound_ms(lx, ly, Lmax, clock_mhz)
     print(f"[3] K2 on {K2_TRIAL_PAIRS} pairs (one launch of the trial's size): posterior max abs diff {k2_err_big:.3e}, "
           f"{n_differ_big} entries differ at all, EA max abs diff vs twin {ea_diff_big:.3e}, the first 512 pairs "
           f"bit-equal to the small batch; kernel {k2_ms_big:.3f} ms ({k2_ms_big * 1e3 / K2_TRIAL_PAIRS:.3f} per 1000 "
           f"pairs), twin {k2_plain_big:.1f} ms; bound {k2_bound_big:.3f} ms ({k2_by_big}), "
-          f"{100 * k2_bound_big / k2_ms_big:.1f} % reached")
+          f"{100 * k2_bound_big / k2_ms_big:.1f} % reached; the same pairs as rows of one read table by index "
+          f"(the trial's route): bit-equal, {k2_ms_index:.3f} ms")
 
     # ---- 4. device edit distance against the native one -------------------
     seqs = xs + ys
@@ -1304,6 +1335,7 @@ def main() -> int:
           f"fail_final {res.fail_final}, n_anneal_iters {res.n_anneal_iters}, erasure strands "
           f"{res.n_erasure_strands}, wall {wall:.2f} s, launches {launches}")
     print("[5] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in res.phase_times.items()))
+    print(f"[5] K2's inputs and launches: {_k2_split()}")
     if res.fail_final or not np.array_equal(res.decoded_bits, cws):
         raise AssertionError(f"trial not recovered: fail_final {res.fail_final}")
     if min(launches[name] for name in ("bp_blocked", "pairhmm", "merge_dp", "consistency")) == 0:
@@ -1402,6 +1434,7 @@ def main() -> int:
           f"n_anneal_iters {rd.n_anneal_iters}, MSA clusters {n_msa_d}, fallback_clusters {n_fb_d}, K2 pairs "
           f"{pairhmm_cuda.pairs}, wall {wd:.2f} s, launches {launches_d}")
     print("[13] phase_times: " + ", ".join(f"{k}={v:.4f}" for k, v in rd.phase_times.items()))
+    print(f"[13] K2's inputs and launches: {_k2_split()}")
     if rd.fail_final or not np.array_equal(rd.decoded_bits, cws):
         raise AssertionError(f"double-coverage trial not recovered: fail_final {rd.fail_final}")
 

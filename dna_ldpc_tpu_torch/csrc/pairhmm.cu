@@ -39,6 +39,9 @@
 // expf -> sum -> logf latency; the sweeps are compiled once per R (a
 // template parameter), so a step is one straight block of R cells with no
 // branch per row. Work stops at lx and ly, not at Lmax.
+// A pair's two reads are rows of read tables named by two index arrays, so
+// a read that takes part in many pairs is packed and uploaded once; the
+// warp copies its two rows into shared memory before the sweeps.
 // Reads longer than 32 x 6 - 1 rows are swept in bands of 192 rows; a
 // band's last row crosses to the next band through a small global edge
 // buffer (two slots of 5 x (Lmax + 1) f32 per pair).
@@ -333,8 +336,9 @@ __device__ void sweep_pair(
 }
 
 __global__ void __launch_bounds__(WARPS * 32) pairhmm_kernel(
-    const int8_t* __restrict__ xc, const int8_t* __restrict__ yc,  // [P, Lmax]
-    const int32_t* __restrict__ lxs, const int32_t* __restrict__ lys,  // [P]
+    const int8_t* __restrict__ xc, const int8_t* __restrict__ yc,  // read tables [Rx, Lmax], [Ry, Lmax]
+    const int32_t* __restrict__ lxs, const int32_t* __restrict__ lys,  // their lengths [Rx], [Ry]
+    const int32_t* __restrict__ ia, const int32_t* __restrict__ ib,  // [P] rows of pair p, or null: row p
     const float* __restrict__ consts,  // [15]
     float* __restrict__ fwdm,          // [P, fm_stride] scratch
     float* __restrict__ edge,          // [P, 2, 5, Lmax + 1] scratch (Lmax + 1 > 32 * RMAX only)
@@ -351,7 +355,8 @@ __global__ void __launch_bounds__(WARPS * 32) pairhmm_kernel(
     signed char* xs = chars + (size_t)warp * 2 * SL;  // xs[k]: x char at 1-based position k
     signed char* ys = xs + SL;
     const Consts C = *reinterpret_cast<const Consts*>(consts);
-    const int lx = lxs[p], ly = lys[p];
+    const int ra = ia ? ia[p] : p, rb = ib ? ib[p] : p;  // the pair's two rows
+    const int lx = lxs[ra], ly = lys[rb];
     float* out = post + (size_t)p * Lmax * Lmax;
 
     // zeros outside the pair's box
@@ -363,8 +368,8 @@ __global__ void __launch_bounds__(WARPS * 32) pairhmm_kernel(
     }
     for (int k = lane; k < Lmax + 2; k += 32) {
         const bool in = k >= 1 && k <= Lmax;
-        xs[k] = in ? xc[(size_t)p * Lmax + k - 1] : (int8_t)4;
-        ys[k] = in ? yc[(size_t)p * Lmax + k - 1] : (int8_t)4;
+        xs[k] = in ? xc[(size_t)ra * Lmax + k - 1] : (int8_t)4;
+        ys[k] = in ? yc[(size_t)rb * Lmax + k - 1] : (int8_t)4;
     }
     __syncwarp();
 
@@ -386,10 +391,12 @@ __global__ void __launch_bounds__(WARPS * 32) pairhmm_kernel(
 
 }  // namespace
 
-// fm_stride: f32 elements of forward-M scratch per pair, from
-// pairhmm_cuda.kernel_layout; edge may be null when Lmax + 1 <= 32 * RMAX.
+// Pair p reads row ia[p] of (xc, lx) and row ib[p] of (yc, ly); with ia
+// and ib null, row p of each. fm_stride: f32 elements of forward-M scratch
+// per pair, from pairhmm_cuda.kernel_layout; edge may be null when
+// Lmax + 1 <= 32 * RMAX.
 extern "C" int pairhmm_launch(
-    const void* xc, const void* yc, const void* lx, const void* ly,
+    const void* xc, const void* yc, const void* lx, const void* ly, const void* ia, const void* ib,
     const void* consts, void* fwdm, void* edge, void* post, void* ea, int P, int Lmax,
     long long fm_stride, void* stream)
 {
@@ -399,6 +406,6 @@ extern "C" int pairhmm_launch(
     const int blocks = (P + WARPS - 1) / WARPS;
     pairhmm_kernel<<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
         (const int8_t*)xc, (const int8_t*)yc, (const int32_t*)lx, (const int32_t*)ly,
-        (const float*)consts, (float*)fwdm, (float*)edge, (float*)post, (float*)ea, P, Lmax, fm_stride);
+        (const int32_t*)ia, (const int32_t*)ib, (const float*)consts, (float*)fwdm, (float*)edge, (float*)post, (float*)ea, P, Lmax, fm_stride);
     return (int)cudaGetLastError();
 }

@@ -89,7 +89,7 @@ def load() -> ctypes.CDLL:
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.bp_blocked_launch.argtypes = [vp] * 6 + [ci] * 11 + [cf, vp]
             lib.bp_blocked_launch.restype = ci
-            lib.pairhmm_launch.argtypes = [vp] * 9 + [ci, ci, ctypes.c_longlong, vp]
+            lib.pairhmm_launch.argtypes = [vp] * 11 + [ci, ci, ctypes.c_longlong, vp]
             lib.pairhmm_launch.restype = ci
             lib.merge_dp_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
             lib.merge_dp_launch.restype = ci

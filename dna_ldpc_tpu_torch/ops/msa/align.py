@@ -30,6 +30,7 @@ aligner interface of ``pipeline.llr``.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -42,7 +43,7 @@ from ...utils.device import DEFAULT_DEVICE, require_device
 from ...utils.profiling import HOST, count, span, tracing, wait
 from .consistency import consistency_core, transform_chunk, transform_pairs, transform_work
 from . import pairhmm
-from .pairhmm import batch_posteriors, k2_posteriors, padded_lmax
+from .pairhmm import ReadTable, batch_posteriors, k2_posteriors, padded_lmax
 
 CONSISTENCY_ITERS = 2   # pairhmm.h:8
 REFINE_ITERS = 100      # pairhmm.h:9
@@ -520,26 +521,64 @@ def _count_transform(clusters, iters: int) -> None:
             count("bytes", nbytes)
 
 
+class _PairTable:
+    """Every pair of the clusters in ``order``, by array arithmetic: the
+    clusters' reads, each once, as rows of one ``ReadTable`` (cluster c's
+    from row ``read_lo[c]``), and their pairs, in cluster_pairs order and
+    clusters in ``order``, as rows ``span[c]`` = (lo, hi) of K2's output,
+    pair p of reads ``a[p]`` and ``b[p]`` of the table."""
+
+    def __init__(self, clusters, order: list[int], Lmax: int):
+        cs = np.asarray(order, np.int64)
+        sizes = np.fromiter(map(len, (clusters[c] for c in order)), np.int64, len(order))
+        npairs = sizes * (sizes - 1) // 2
+        read_lo, pair_lo = np.cumsum(sizes) - sizes, np.cumsum(npairs) - npairs
+        self.n, self.read_lo, self.pair_lo = (np.zeros(len(clusters), np.int64) for _ in range(3))
+        self.n[cs], self.read_lo[cs], self.pair_lo[cs] = sizes, read_lo, pair_lo
+        self.a = np.empty(int(npairs.sum()), np.int32)
+        self.b = np.empty_like(self.a)
+        for n in np.unique(sizes):  # each size's upper triangle, at every cluster of that size
+            sel = sizes == n
+            ti, tj = np.triu_indices(n, 1)
+            rows = pair_lo[sel][:, None] + np.arange(len(ti))
+            self.a[rows] = read_lo[sel][:, None] + ti
+            self.b[rows] = read_lo[sel][:, None] + tj
+        self.span = dict(zip(order, zip(pair_lo.tolist(), (pair_lo + npairs).tolist())))
+        self.table = ReadTable(list(itertools.chain.from_iterable(clusters[c] for c in order)), Lmax)
+
+    def batch(self, batch: list[int], nb: int):
+        """The device MSA's inputs of clusters ``batch`` in bucket ``nb``:
+        K2's row of each pair slot (``ids``, cluster-major, slots in
+        cluster_pairs(nb) order), the slots that hold a pair (``mask``),
+        1/n a cluster and the reads' lengths [C, nb], grouped by size."""
+        cs = np.asarray(batch, np.int64)
+        ns = self.n[cs]
+        npair = nb * (nb - 1) // 2
+        ids = np.zeros(len(cs) * npair, np.int64)
+        mask = np.zeros(len(ids), bool)
+        lengths = np.zeros((len(cs), nb), np.int32)
+        for n in np.unique(ns):
+            bi = np.flatnonzero(ns == n)
+            ti, tj = np.triu_indices(n, 1)
+            slots = bi[:, None] * npair + (ti * nb - ti * (ti + 1) // 2 + tj - ti - 1)
+            ids[slots] = self.pair_lo[cs[bi]][:, None] + np.arange(len(ti))
+            mask[slots] = True
+            lengths[bi, :n] = self.table.lengths[self.read_lo[cs[bi]][:, None] + np.arange(n)]
+        return ids, mask, (1.0 / ns).astype(np.float32), lengths
+
+
 def _pairs_k2(clusters, order: list[int], Lmax: int, dev: torch.device, timings: dict):
     """K2 over every pair of the clusters in ``order``, in cluster_pairs
-    order: the pair lists (span ``msa.pairs``, host) and the kernel
-    (``msa.k2``), both under the ``timings`` key "pairhmm". Returns
-    (posteriors [P, Lmax, Lmax] bf16 on ``dev`` or None, EA scores [P],
-    cluster -> its (lo, hi) rows)."""
+    order: the read table and the pairs' rows (``_PairTable``; span
+    ``msa.pairs``, host) and the kernel (``msa.k2``), both under the
+    ``timings`` key "pairhmm". Returns (posteriors [P, Lmax, Lmax] bf16 on
+    ``dev`` or None, EA scores [P], the ``_PairTable``)."""
     with span("msa.pairs", kind=HOST, timings=timings, key="pairhmm"):
-        pair_span: dict[int, tuple[int, int]] = {}
-        xs: list[str] = []
-        ys: list[str] = []
-        for c in order:
-            seqs = clusters[c]
-            lo = len(xs)
-            for i, j in cluster_pairs(len(seqs)):
-                xs.append(seqs[i])
-                ys.append(seqs[j])
-            pair_span[c] = (lo, len(xs))
+        pt = _PairTable(clusters, order, Lmax)
+        xs, ys = pt.table.side(pt.a), pt.table.side(pt.b)
     with span("msa.k2", timings=timings, key="pairhmm"):
         posts, ea_all = k2_posteriors(xs, ys, Lmax, dev) if xs else (None, None)
-    return posts, ea_all, pair_span
+    return posts, ea_all, pt
 
 
 def _align_clusters_device(
@@ -566,9 +605,9 @@ def _align_clusters_device(
     Clusters above the top bucket or whose alignment overflows the column
     budget, or all where a read passes the column maps' bound, go through
     ``_align_clusters_fused``. Spans and ``timings`` keys: "pairhmm"
-    (``msa.pairs``, host: the pair lists; ``msa.k2``), per batch
-    (``msa.batch``) "consistency" (``msa.assemble``, host: the pair ids
-    and masks; ``msa.consistency``: uploads, gather, transform), "msa_device" (``msa.joins``, host: UPGMA;
+    (``msa.pairs``, host: the read table and the pairs' rows; ``msa.k2``),
+    per batch (``msa.batch``) "consistency" (``msa.assemble``, host: the
+    pair ids and masks; ``msa.consistency``: uploads, gather, transform), "msa_device" (``msa.joins``, host: UPGMA;
     ``msa.device``: the progressive and refine merges), "msa_collect"
     (``msa.collect``: the column maps' download, ``msa.rows``), plus the
     fallback flow's keys under ``msa.fallback`` when it runs."""
@@ -595,29 +634,17 @@ def _align_clusters_device(
         return _align_clusters_fused(clusters, refine_iters, consistency_iters, seed, device, timings)
 
     order = [c for nb in sorted(by_bucket) for c in by_bucket[nb]]
-    posts, ea_all, pair_span = _pairs_k2(clusters, order, Lmax, dev, timings)
+    posts, ea_all, pt = _pairs_k2(clusters, order, Lmax, dev, timings)
+    pair_span = pt.span
 
     for nb in sorted(by_bucket):
         members = by_bucket[nb]
-        npair = nb * (nb - 1) // 2
-        slot_of = {pair: sl for sl, pair in enumerate(cluster_pairs(nb))}
         C_cap = max(1, pairhmm.BUDGET_BYTES // cluster_bytes(nb, Lmax))
         for mlo in range(0, len(members), C_cap):
             batch = members[mlo : mlo + C_cap]
             with span("msa.batch"):
                 with span("msa.assemble", kind=HOST, timings=timings, key="consistency"):
-                    ids = np.zeros(len(batch) * npair, np.int64)
-                    mask = np.zeros(len(batch) * npair, bool)
-                    inv_n = np.ones(len(batch), np.float32)
-                    lengths = np.zeros((len(batch), nb), np.int32)
-                    for bi, c in enumerate(batch):
-                        n = len(clusters[c])
-                        inv_n[bi] = 1.0 / n
-                        lengths[bi, :n] = [len(q) for q in clusters[c]]
-                        for pi, pair in enumerate(cluster_pairs(n)):
-                            sl = bi * npair + slot_of[pair]
-                            ids[sl] = pair_span[c][0] + pi
-                            mask[sl] = True
+                    ids, mask, inv_n, lengths = pt.batch(batch, nb)
                 with span("msa.consistency", timings=timings, key="consistency"):
                     ids_t, mask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
                     inv_n_t = torch.as_tensor(inv_n, device=dev)
@@ -684,7 +711,8 @@ def _align_clusters_fused(
 
     # ---- 1. pair-HMM over every pair of every cluster -------------------
     Lmax = padded_lmax(max(len(s) for c in multi for s in clusters[c]))
-    posts, ea_all, pair_span = _pairs_k2(clusters, multi, Lmax, dev, timings)
+    posts, ea_all, pt = _pairs_k2(clusters, multi, Lmax, dev, timings)
+    pair_span = pt.span
 
     # ---- 2-3. consistency batches, EA distances, host aligner -----------
     futures = {}

@@ -11,7 +11,8 @@ the JAX package's ``use_pallas(params)`` chooses:
 
 - the default tables: the CUDA kernel K2 on the card, its plain torch
   twin on the CPU (``pairhmm_cuda.py``), which also give each pair's EA
-  score (``batch_post_ea``);
+  score (``batch_post_ea``); ``k2_posteriors`` hands it a ``ReadTable``,
+  each read packed once (``pack_reads``), and the two rows of each pair;
 - any other tables (``params``, the ensemble replicates' perturbed HMM):
   ``_posteriors_device``, the JAX package's antidiagonal sweeps as plain
   torch on either device. Backward comes from a forward DP over the
@@ -25,13 +26,13 @@ top-k transport itself is left out.
 
 from __future__ import annotations
 
+import collections.abc
 import functools
 
 import numpy as np
 import torch
 
 from ...utils.device import DEFAULT_DEVICE, require_device
-from ...utils.dna import seqs_to_matrix
 from ...utils.profiling import count, span, tracing, wait
 
 LOG_ZERO = -1e30
@@ -132,16 +133,26 @@ def padded_lmax(max_len: int) -> int:
     return max(32, -(-max(int(max_len), 1) // 32) * 32)
 
 
+def pack_reads(reads, Lmax: int):
+    """Each read packed once: codes [R, Lmax] int8 (ACGT and acgt -> 0..3,
+    all else and the padding -> wildcard 4) and lengths [R] int32, by one
+    join of the reads and one masked scatter of their codes, with no loop
+    per read."""
+    lengths = np.fromiter(map(len, reads), np.int64, len(reads))
+    if lengths.max(initial=0) > Lmax:
+        raise ValueError(f"a read is longer than Lmax={Lmax}")
+    codes = np.full((len(reads), Lmax), 4, np.int8)
+    # row r's first lengths[r] cells, row after row, are the joined reads in order
+    codes[np.arange(Lmax) < lengths[:, None]] = _ENCODE_TABLE[np.frombuffer("".join(reads).encode("ascii"), np.uint8)]
+    return codes, lengths.astype(np.int32)
+
+
 def encode_pairs(seqs_x, seqs_y, Lmax: int):
     """Host packing: codes [P, Lmax] int8 (ACGT -> 0..3, all else and the
     padding -> wildcard 4) and lengths [P] int32 for both sides."""
-    lx = np.array([len(s) for s in seqs_x], np.int32)
-    ly = np.array([len(s) for s in seqs_y], np.int32)
-    if max(lx.max(initial=0), ly.max(initial=0)) > Lmax:
-        raise ValueError(f"a read is longer than Lmax={Lmax}")
-    X = _ENCODE_TABLE[seqs_to_matrix(seqs_x, pad=Lmax)]
-    Y = _ENCODE_TABLE[seqs_to_matrix(seqs_y, pad=Lmax)]
-    return X, Y, lx, ly
+    P = len(seqs_x)
+    codes, lengths = pack_reads(list(seqs_x) + list(seqs_y), Lmax)
+    return codes[:P], codes[P:], lengths[:P], lengths[P:]
 
 
 def batch_post_ea(seqs_x, seqs_y, Lmax: int | None = None, device=DEFAULT_DEVICE):
@@ -163,40 +174,101 @@ def batch_post_ea(seqs_x, seqs_y, Lmax: int | None = None, device=DEFAULT_DEVICE
     return post, ea, lx, ly, Lmax
 
 
+class ReadTable:
+    """Reads packed once each for K2 (``pack_reads``): ``codes`` [R, Lmax]
+    int8 and ``lengths`` [R] int32, row r for ``reads[r]``."""
+
+    def __init__(self, reads: list[str], Lmax: int):
+        self.reads, self.Lmax = reads, Lmax
+        self.codes, self.lengths = pack_reads(reads, Lmax)
+
+    def __len__(self) -> int:
+        return len(self.reads)
+
+    def side(self, rows) -> "TableSide":
+        """One read of each pair, pair p's at row ``rows[p]``."""
+        return TableSide(self, rows)
+
+
+class TableSide(collections.abc.Sequence):
+    """One side of read pairs as rows of a ``ReadTable``; a sequence of the
+    reads themselves, so whatever takes a list of reads takes it too."""
+
+    def __init__(self, table: ReadTable, rows):
+        rows = np.asarray(rows, np.int32)
+        if len(rows) and (rows.min() < 0 or rows.max() >= len(table)):
+            raise IndexError("a row outside the read table")
+        self.table, self.rows = table, rows
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, p):
+        if isinstance(p, slice):
+            return TableSide(self.table, self.rows[p])
+        return self.table.reads[self.rows[p]]
+
+    def __iter__(self):
+        return map(self.table.reads.__getitem__, self.rows.tolist())
+
+
+def _pair_rows(xs, ys, Lmax: int):
+    """(read table, rows of x, rows of y) of the pairs (x_p, y_p): the
+    sides' own table where both are sides of one table of width Lmax, else
+    a table of x's reads then y's."""
+    if isinstance(xs, TableSide) and isinstance(ys, TableSide) and xs.table is ys.table and xs.table.Lmax == Lmax:
+        return xs.table, xs.rows, ys.rows
+    P = len(xs)
+    table = ReadTable(list(xs) + list(ys), Lmax)
+    return table, np.arange(P, dtype=np.int32), np.arange(P, 2 * P, dtype=np.int32)
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` on ``dev``; to the card through page-locked memory, with no wait."""
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
 def k2_posteriors(xs, ys, Lmax: int, dev: torch.device):
-    """K2 (or its twin on the CPU) over read pairs in batches sized from
-    BUDGET_BYTES. Returns (posteriors [P, Lmax, Lmax] bf16 on ``dev`` —
-    the value set the JAX package's transport carries — and the EA scores
-    [P] f32 numpy). Counts on the innermost span (the callers' ``msa.k2``):
-    ``launches`` (K2's, its twin's calls on the CPU), ``pairs``, and while
-    a profiler records ``cells`` = sum of (lx + 1)(ly + 1), the DP planes,
-    and ``residues`` = sum of lx + ly."""
+    """K2 (or its twin on the CPU) over read pairs (x_p, y_p) in batches
+    sized from BUDGET_BYTES. ``xs``, ``ys``: lists of reads, or two sides
+    of one ``ReadTable`` (``ReadTable.side``), whose table is uploaded as
+    it is; lists make a table of both. Returns (posteriors [P, Lmax, Lmax]
+    bf16 on ``dev`` — the value set the JAX package's transport carries —
+    and the EA scores [P] f32 numpy). The table and the pairs' rows cross
+    to the card once, the EA scores back once after the last batch.
+    Counts on the innermost span (the callers' ``msa.k2``): ``reads`` (the
+    table's rows), ``launches`` (K2's, its twin's calls on the CPU),
+    ``pairs``, ``waits``, and while a profiler records ``cells`` = sum of
+    (lx + 1)(ly + 1), the DP planes, and ``residues`` = sum of lx + ly."""
     from .pairhmm_cuda import kernel_layout, post_ea
 
-    X, Y, lx, ly = encode_pairs(xs, ys, Lmax)
-    ntot = len(xs)
+    table, a, b = _pair_rows(xs, ys, Lmax)
+    ntot = len(a)
+    if ntot == 0:
+        return torch.empty((0, Lmax, Lmax), dtype=torch.bfloat16, device=dev), np.zeros(0, np.float32)
+    codes, lengths = _to_device(table.codes, dev), _to_device(table.lengths, dev)
+    ab = _to_device(np.stack([a, b]), dev)
+    count("reads", len(table))
     posts = torch.empty((ntot, Lmax, Lmax), dtype=torch.bfloat16, device=dev)
-    ea_all = np.zeros(ntot, np.float32)
-    # kernel bytes per pair: forward-M scratch + f32 posterior + bf16 copy
+    ea = torch.empty(ntot, dtype=torch.float32, device=dev)
+    # kernel bytes per pair: forward-M scratch + f32 posterior, and 2 B a cell of headroom
     per_pair = kernel_layout(Lmax)["fm_stride"] * 4 + Lmax * Lmax * 6
     chunk = max(1, BUDGET_BYTES // per_pair)
+    post = torch.empty((min(chunk, ntot), Lmax, Lmax), dtype=torch.float32, device=dev)
     for lo in range(0, ntot, chunk):
         hi = min(ntot, lo + chunk)
-        post, ea = post_ea(
-            torch.as_tensor(X[lo:hi], device=dev), torch.as_tensor(Y[lo:hi], device=dev),
-            torch.as_tensor(lx[lo:hi], device=dev), torch.as_tensor(ly[lo:hi], device=dev),
-            Lmax,
-        )
-        posts[lo:hi] = post.to(torch.bfloat16)
-        ea_all[lo:hi] = ea.cpu().numpy()
-        wait(dev, 5)  # four uploads, the EA download
-        del post, ea
+        post_ea(codes, codes, lengths, lengths, Lmax, ab[0, lo:hi], ab[1, lo:hi], post[: hi - lo], ea[lo:hi])
+        posts[lo:hi].copy_(post[: hi - lo])
         count("launches")
         count("pairs", hi - lo)
         if tracing():
-            a, b = lx[lo:hi].astype(np.int64), ly[lo:hi].astype(np.int64)
-            count("cells", int(((a + 1) * (b + 1)).sum()))
-            count("residues", int((a + b).sum()))
+            lx, ly = table.lengths[a[lo:hi]].astype(np.int64), table.lengths[b[lo:hi]].astype(np.int64)
+            count("cells", int(((lx + 1) * (ly + 1)).sum()))
+            count("residues", int((lx + ly).sum()))
+    del post
+    ea_all = ea.cpu().numpy()
+    wait(dev)  # the EA download
     return posts, ea_all
 
 

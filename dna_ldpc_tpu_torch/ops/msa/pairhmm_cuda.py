@@ -7,7 +7,10 @@ torch twin.
 launches ``csrc/pairhmm.cu`` (one warp per pair, a wavefront in
 registers); on CPU tensors it runs ``post_ea_ref``, the same recurrences
 as plain torch ops vectorized over pairs. A CUDA tensor launches the
-kernel or raises.
+kernel or raises. The reads are rows of read tables and a pair names its
+two rows through index tensors (identity when none are given), so
+``pairhmm.k2_posteriors`` packs and uploads each read of a trial once
+however many pairs it takes part in.
 
 Both compute the TPU kernel's three phases:
 
@@ -44,10 +47,12 @@ what it wrote; ``kernel_layout`` sizes it.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ...utils.profiling import device_time, wait
+from ...utils.profiling import device_time
 from .pairhmm import CONST_NAMES, MIN_SPARSE_PROB, hmm_consts
 
 launches = 0  # kernel launches since the last reset (main-path evidence)
@@ -216,28 +221,35 @@ def kernel_layout(Lmax: int) -> dict:
     }
 
 
-def _post_ea_cuda(xc, yc, lx, ly, Lmax: int):
+@functools.lru_cache(maxsize=None)
+def _consts_on(dev: torch.device) -> torch.Tensor:
+    """hmm_consts() on the card ``dev``, uploaded once, through page-locked
+    memory: no wait."""
+    return torch.from_numpy(hmm_consts()).pin_memory().to(dev, non_blocking=True)
+
+
+def _post_ea_cuda(xc, yc, lx, ly, a, b, post, ea, Lmax: int):
     global launches, pairs
     from ... import cuda_lib
 
-    P = xc.shape[0]
+    P = post.shape[0]
     lay = kernel_layout(Lmax)
     dev = xc.device
     xc = xc.to(torch.int8).contiguous()
     yc = yc.to(torch.int8).contiguous()
     lx = lx.to(torch.int32).contiguous()
     ly = ly.to(torch.int32).contiguous()
-    consts = torch.as_tensor(hmm_consts(), device=dev)
-    wait(dev)
+    if a is not None:
+        a = a.to(torch.int32).contiguous()
+        b = b.to(torch.int32).contiguous()
     fwdm = torch.empty((P, lay["fm_stride"]), dtype=torch.float32, device=dev)
     edge = torch.empty((P, lay["edge_floats"]), dtype=torch.float32, device=dev)
-    post = torch.empty((P, Lmax, Lmax), dtype=torch.float32, device=dev)
-    ea = torch.empty(P, dtype=torch.float32, device=dev)
     lib = cuda_lib.load()
     with torch.cuda.device(dev), device_time(dev):
         status = lib.pairhmm_launch(
             xc.data_ptr(), yc.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-            consts.data_ptr(), fwdm.data_ptr(), edge.data_ptr(), post.data_ptr(), ea.data_ptr(),
+            None if a is None else a.data_ptr(), None if b is None else b.data_ptr(),
+            _consts_on(dev).data_ptr(), fwdm.data_ptr(), edge.data_ptr(), post.data_ptr(), ea.data_ptr(),
             P, Lmax, lay["fm_stride"], torch.cuda.current_stream(dev).cuda_stream,
         )
     cuda_lib.check(status, "pairhmm_launch")
@@ -247,18 +259,43 @@ def _post_ea_cuda(xc, yc, lx, ly, Lmax: int):
     return post, ea
 
 
-def post_ea(xc, yc, lx, ly, Lmax: int):
+def post_ea(xc, yc, lx, ly, Lmax: int, a=None, b=None, post=None, ea=None):
     """Posteriors [P, Lmax, Lmax] and EA scores [P] for encoded pairs:
-    the K2 kernel on CUDA tensors, the plain twin on CPU tensors."""
-    P = xc.shape[0]
-    if xc.shape != (P, Lmax) or yc.shape != (P, Lmax) or lx.shape != (P,) or ly.shape != (P,):
+    the K2 kernel on CUDA tensors, the plain twin on CPU tensors.
+
+    xc [Rx, Lmax], yc [Ry, Lmax]: integer codes (4 = wildcard/padding) of
+    the reads, lx [Rx], ly [Ry] their lengths. Pair p is row ``a[p]`` of
+    xc and row ``b[p]`` of yc (index tensors [P]; both or neither); without
+    them, row p of each (Rx = Ry = P). ``post`` (f32 [P, Lmax, Lmax]) and
+    ``ea`` (f32 [P]), contiguous, take the results when given; the twin
+    runs on the gathered rows and copies into them."""
+    if (a is None) != (b is None):
+        raise ValueError("give both index tensors a, b or neither")
+    P = xc.shape[0] if a is None else a.shape[0]
+    if a is None and (yc.shape[0] != P or lx.shape != (P,) or ly.shape != (P,)):
         raise ValueError("xc, yc must be [P, Lmax] and lx, ly [P]")
-    devs = {t.device for t in (xc, yc, lx, ly)}
+    if a is not None and (a.shape != (P,) or b.shape != (P,)):
+        raise ValueError("a, b must be [P]")
+    if xc.shape[1:] != (Lmax,) or yc.shape[1:] != (Lmax,) or lx.shape != xc.shape[:1] or ly.shape != yc.shape[:1]:
+        raise ValueError("xc, yc must be [R, Lmax] and lx, ly their lengths")
+    given = [t for t in (a, b, post, ea) if t is not None]
+    devs = {t.device for t in (xc, yc, lx, ly, *given)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+    for t, shape in ((post, (P, Lmax, Lmax)), (ea, (P,))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"an output must be float32, contiguous and {shape}")
     dev = xc.device
     if dev.type == "cpu":
-        return post_ea_ref(xc, yc, lx, ly, Lmax)
+        if a is not None:
+            a, b = a.long(), b.long()
+            xc, yc, lx, ly = xc[a], yc[b], lx[a], ly[b]
+        p, e = post_ea_ref(xc, yc, lx, ly, Lmax)
+        return (p if post is None else post.copy_(p)), (e if ea is None else ea.copy_(e))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _post_ea_cuda(xc, yc, lx, ly, Lmax)
+    if post is None:
+        post = torch.empty((P, Lmax, Lmax), dtype=torch.float32, device=dev)
+    if ea is None:
+        ea = torch.empty(P, dtype=torch.float32, device=dev)
+    return _post_ea_cuda(xc, yc, lx, ly, a, b, post, ea, Lmax)

@@ -10,6 +10,7 @@ versions.
     python3 kernel_times.py --against DIR   # DIR, here, here, DIR: one JSON line per turn
     python3 kernel_times.py --ptxas         # registers, shared memory, spills of every kernel
     python3 kernel_times.py --generic       # K1's generic kernel on other codes, tiles staged and in place
+    python3 kernel_times.py --k2 [--against DIR]  # K2's trial route and _pairs_k2 only
 
 ``DIR`` is a second checkout (``git archive <commit> | tar -x -C tmp_parent``);
 each turn is a process of its own that imports ``dna_ldpc_tpu_torch`` from
@@ -17,7 +18,9 @@ its checkout. Shapes, generators and the timer come from ``chip_smoke.py``:
 K1 on 64 trial-like codewords (200 iterations), on a 1024-frame AWGN batch
 at 4.25 dB (50 iterations, early stop and fixed work) and on its first 32
 frames (and that run's bound, ``utils/roofline.py``); K2 on 512 pairs at
-Lmax = 160 and on one launch of the trial's size;
+Lmax = 160 and on one launch of the trial's size, then on the same two
+sizes as the trial calls it (row indices of one read table where the
+checkout's ``post_ea`` takes them, per-pair copies before);
 the merge (BuildPost + MEA DP + walk: ``mea_cuda.merge_walk``) on 512
 clusters of 8 reads at the first and the last progressive wave and on 64
 clusters of 32 reads at a refinement bipartition of 16 reads a side (with
@@ -26,12 +29,15 @@ transform at the trial's buckets 4, 8 and 12 (``chip_smoke.py`` phase 17:
 the kernel's call and device time, the plain block product, the bound;
 a checkout without the kernel times its own transform there). Then
 ``chip_smoke.py``'s phase-5 trial: one warm-up ``decode_trial``, then two
-more, each wall on the host clock ending in a synchronize.
+more, each wall on the host clock ending in a synchronize; then
+``align._pairs_k2`` whole on the clusters of that trial and of phase 13's
+140,000 reads, its host seconds and K2's event seconds apart.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -43,7 +49,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 from chip_smoke import (  # noqa: E402
-    K2_TRIAL_PAIRS, _consistency_times, _coverage_llrs, _cuda_ms, _merge_waves, _noisy_pairs,
+    K2_TRIAL_PAIRS, _consistency_times, _coverage_llrs, _cuda_ms, _merge_waves, _noisy_pairs, _strand_reads,
 )
 
 
@@ -76,9 +82,9 @@ def _k2_posteriors():
         importlib.import_module("dna_ldpc_tpu_torch.ops.msa.align"), "_pair_posteriors")
 
 
-def trial_walls() -> dict:
+def trial_walls(dev) -> dict:
     """Seconds of ``chip_smoke.py``'s phase-5 trial in the checkout on the
-    path, twice after a warm-up."""
+    path, twice after a warm-up; then ``pairs_k2_times``."""
     import torch
 
     from dna_ldpc_tpu_torch.pipeline.decode import TrialConfig, decode_trial
@@ -94,7 +100,106 @@ def trial_walls() -> dict:
         walls.append(round(time.time() - t0, 3))
         if res.fail_final:
             raise AssertionError(f"the trial left fail_final {res.fail_final}")
-    return {"trial_device_s": walls[1:]}
+    return {"trial_device_s": walls[1:], **pairs_k2_times(dev, cws, reads, quals)}
+
+
+def k2_trial_route_times(dev) -> dict:
+    """K2 as the trial calls it, at 512 and K2_TRIAL_PAIRS pairs of clusters
+    of 8 reads of one strand: through row indices of one read table where
+    the checkout's ``post_ea`` takes them (``k2_route`` "index"), else on
+    per-pair copies of the rows ("copies"). The kernel entry alone."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa import pairhmm_cuda
+    from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
+
+    rng = np.random.default_rng(10)
+    clusters = [_strand_reads(rng, 8) for _ in range(-(-K2_TRIAL_PAIRS // 28))]
+    reads = [r for cl in clusters for r in cl]
+    ti, tj = np.triu_indices(8, 1)
+    first = 8 * np.arange(len(clusters))[:, None]
+    a, b = ((first + t).ravel()[:K2_TRIAL_PAIRS].astype(np.int32) for t in (ti, tj))
+    codes, _, lengths, _ = (torch.as_tensor(v, device=dev) for v in encode_pairs(reads, reads, 160))
+    by_index = "a" in inspect.signature(pairhmm_cuda.post_ea).parameters
+    out = {"k2_route": "index" if by_index else "copies"}
+    for P, reps in ((512, 10), (K2_TRIAL_PAIRS, 3)):
+        at, bt = (torch.as_tensor(v[:P], device=dev) for v in (a, b))
+        if by_index:
+            out[f"k2_route_{P}pairs_L160"] = _cuda_ms(
+                lambda: pairhmm_cuda.post_ea(codes, codes, lengths, lengths, 160, at, bt), reps)
+        else:
+            copies = (codes[at.long()], codes[bt.long()], lengths[at.long()], lengths[bt.long()])
+            out[f"k2_route_{P}pairs_L160"] = _cuda_ms(lambda: pairhmm_cuda.post_ea(*copies, 160), reps)
+    return out
+
+
+def pairs_k2_times(dev, cws, reads72k, quals72k) -> dict:
+    """``align._pairs_k2`` whole on the clusters the trial hands the MSA
+    at 72,000 reads (``chip_smoke.py`` phase 5) and 140,000 (phase 13), in
+    the device flow's order: the wall of a call (ending in a synchronize)
+    and the host seconds of its spans ``msa.pairs`` (the pair lists, or
+    the read table) and ``msa.k2`` (uploads, launches, casts, downloads),
+    each the mean of 3 calls after a warm one; then one call under the
+    profiler for K2's event-timed seconds; K2 pairs, launches and the
+    ``reads`` count where the checkout counts them."""
+    import importlib
+
+    import torch
+
+    from dna_ldpc_tpu_torch.ops.msa.device_msa import MSA_BUCKETS
+    from dna_ldpc_tpu_torch.ops.msa.pairhmm import padded_lmax
+    from dna_ldpc_tpu_torch.pipeline.decode import TrialConfig, decode_trial
+    from dna_ldpc_tpu_torch.pipeline.simulate import ChannelModel, encode_oligos, simulate_reads
+    from dna_ldpc_tpu_torch.utils import profiling
+
+    msa_align = importlib.import_module("dna_ldpc_tpu_torch.ops.msa.align")
+    out = {}
+    for name, (reads, quals) in (("72k", (reads72k, quals72k)),
+                                 ("140k", simulate_reads(encode_oligos(cws), 140000, ChannelModel(), seed=5))):
+        seen = []
+        align_clusters = msa_align.align_clusters
+        msa_align.align_clusters = lambda cl, *args, **kw: seen.append(cl) or align_clusters(cl, *args, **kw)
+        try:
+            decode_trial(reads, quals, cws, TrialConfig())
+        finally:
+            msa_align.align_clusters = align_clusters
+        clusters = seen[0]
+        by_bucket: dict = {}
+        for c, seqs in enumerate(clusters):
+            if 2 <= len(seqs) <= MSA_BUCKETS[-1]:
+                by_bucket.setdefault(next(b for b in MSA_BUCKETS if b >= len(seqs)), []).append(c)
+        order = [c for nb in sorted(by_bucket) for c in by_bucket[nb]]
+        Lmax = padded_lmax(max(len(s) for c in order for s in clusters[c]))
+        rows = []
+        for k in range(5):
+            traced = k == 4
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext()):
+                with profiling.span("kernel_times.pairs_k2", root=True):
+                    res = msa_align._pairs_k2(clusters, order, Lmax, dev, {})
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del res
+            rec = profiling.recent_records("kernel_times.pairs_k2")[-1]
+            spans = {s["name"]: s for s in rec}
+            rows.append((wall, spans["msa.pairs"]["host_s"], spans["msa.k2"]["host_s"], spans["msa.k2"]["device_s"],
+                         spans["msa.k2"]["counts"]))
+        timed = rows[1:4]
+        out[f"pairs_k2_{name}"] = {
+            "clusters": len(order), "Lmax": Lmax,
+            "wall_s": round(sum(r[0] for r in timed) / 3, 4),
+            "msa_pairs_host_s": round(sum(r[1] for r in timed) / 3, 4),
+            "msa_k2_host_s": round(sum(r[2] for r in timed) / 3, 4),
+            "k2_event_s": rows[4][3], "traced_wall_s": round(rows[4][0], 4),
+            "counts": rows[1][4],
+        }
+        torch.cuda.empty_cache()
+    return out
 
 
 def merge_times(dev) -> dict:
@@ -161,11 +266,25 @@ def measure(repo: str) -> dict:
         "k1_awgn32_50it_fixed_bound": roofline.k1_bound_ms(code.G * code.J * code.q, code.n_vars, [50] * 32),
         "k2_512pairs_L160": _cuda_ms(lambda: k2(*[a[:512] for a in big], 160), 10),
         f"k2_{K2_TRIAL_PAIRS}pairs_L160": _cuda_ms(lambda: k2(*big, 160), 3),
+        **k2_trial_route_times(dev),
         **merge_times(dev),
         **{name: {k: row[k] for k in ("ms", "kernel_device_ms", "plain_ms", "bound_ms", "share_pct")}
            for name, row in _consistency_times(dev).items()},
-        **trial_walls(),
+        **trial_walls(dev),
     }
+
+
+def measure_k2(repo: str) -> dict:
+    """K2's part of ``measure``: the route the trial takes and
+    ``_pairs_k2`` whole (``--k2``)."""
+    sys.path.insert(0, repo)
+    import torch
+
+    from trace_trial import smoke_trial
+
+    dev = torch.device("cuda", 0)
+    return {"repo": os.path.relpath(repo, HERE), "card": _card(), **k2_trial_route_times(dev),
+            **pairs_k2_times(dev, *smoke_trial())}
 
 
 def ptxas() -> None:
@@ -222,6 +341,7 @@ def main() -> int:
     ap.add_argument("--repo", default=HERE, help="checkout to import dna_ldpc_tpu_torch from")
     ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v for every kernel and stop")
     ap.add_argument("--generic", action="store_true", help="time K1's generic kernel, tiles staged and in place")
+    ap.add_argument("--k2", action="store_true", help="time only K2's trial route and _pairs_k2 (with --against too)")
     ap.add_argument("--against", help="a second checkout: run it, this one twice, and it again")
     a = ap.parse_args()
     import torch
@@ -231,7 +351,7 @@ def main() -> int:
         return 2
     if a.against:
         for repo in (a.against, HERE, HERE, a.against):
-            cmd = [sys.executable, os.path.abspath(__file__), "--repo", os.path.abspath(repo)]
+            cmd = [sys.executable, os.path.abspath(__file__), "--repo", os.path.abspath(repo)] + ["--k2"] * a.k2
             rc = subprocess.run(cmd, cwd=os.path.abspath(repo)).returncode
             if rc:
                 return rc
@@ -239,7 +359,10 @@ def main() -> int:
     if a.ptxas:
         ptxas()
         return 0
-    print(json.dumps(generic() if a.generic else measure(os.path.abspath(a.repo))))
+    if a.generic:
+        print(json.dumps(generic()))
+    else:
+        print(json.dumps((measure_k2 if a.k2 else measure)(os.path.abspath(a.repo))))
     return 0
 
 

@@ -37,7 +37,7 @@ from dna_ldpc_tpu_torch.ops import bp_cuda, cluster, decoders, faid
 from dna_ldpc_tpu_torch.ops.editdist import edit_distance_pairs_device
 from dna_ldpc_tpu_torch.ops.msa import device_msa, mea_cuda, msa_aligner, pairhmm, pairhmm_cuda
 from dna_ldpc_tpu_torch.ops.msa.align import (
-    _align_clusters_fused, _ea_dists, align, align_clusters, cluster_pairs, mea_score, upgma_join_order,
+    _align_clusters_fused, _ea_dists, _pairs_k2, align, align_clusters, cluster_pairs, mea_score, upgma_join_order,
 )
 from dna_ldpc_tpu_torch.ops.msa.ensemble import perturb_params
 from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_clusters, consistency_core
@@ -438,6 +438,88 @@ def test_pairhmm_kernel_strips_and_bands(dev, Lmax, P):
         xs.append(x)
         ys.append(y)
     _check_pairhmm(dev, xs, ys, Lmax)
+
+
+def _index_table(rng, Lmax, R, P):
+    """R reads of one strand (ragged, some empty, some of Lmax, wildcards)
+    and P pairs of their rows, repeats and a read with itself included."""
+    base = "".join(rng.choice(list("ACGT"), Lmax))
+    reads = []
+    for k in range(R):
+        n = [0, Lmax, 1, 31, 32][k] if k < 5 else int(rng.integers(0, Lmax + 1))
+        r = np.array(list(base[:n]), dtype="<U1")
+        r[rng.random(n) < 0.03] = "N"
+        reads.append("".join(r))
+    a = rng.integers(0, R, P).astype(np.int32)
+    b = rng.integers(0, R, P).astype(np.int32)
+    b[:1] = a[:1]
+    return reads, a, b
+
+
+@pytest.mark.parametrize("Lmax", [33, 97, 160, 230])
+@pytest.mark.parametrize("R,P", [(1, 1), (7, 1), (24, 40)])
+def test_pairhmm_kernel_by_index_is_bit_equal_to_copies(dev, Lmax, R, P):
+    """K2 reading its pairs through row indices of one read table gives,
+    bit for bit, what it gives on per-pair copies of the rows; both within
+    the twin's tolerance."""
+    rng = np.random.default_rng(Lmax * 100 + R + P)
+    reads, a, b = _index_table(rng, Lmax, R, P)
+    codes, lengths = (torch.as_tensor(v, device=dev) for v in pairhmm.pack_reads(reads, Lmax))
+    at, bt = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+    before = pairhmm_cuda.launches
+    pk, ek = pairhmm_cuda.post_ea(codes, codes, lengths, lengths, Lmax, at, bt)
+    copies = (codes[at.long()], codes[bt.long()], lengths[at.long()], lengths[bt.long()])
+    pc, ec = pairhmm_cuda.post_ea(*copies, Lmax)
+    torch.cuda.synchronize()
+    assert pairhmm_cuda.launches == before + 2
+    assert torch.equal(pk, pc) and torch.equal(ek, ec)
+    pr, er = pairhmm_cuda.post_ea_ref(*copies, Lmax)
+    torch.testing.assert_close(pk, pr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 64])
+def test_k2_posteriors_by_index_in_chunks(dev, monkeypatch, chunk):
+    """``k2_posteriors`` on two sides of one read table, in batches of
+    ``chunk`` pairs: posteriors and EA scores bit-equal to K2 on per-pair
+    copies cast to bf16; one wait on ``msa.k2`` (the EA download) whatever
+    the number of batches; the table's rows counted as ``reads``."""
+    from dna_ldpc_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(chunk)
+    Lmax = 160
+    reads, a, b = _index_table(rng, Lmax, 30, 50)
+    table = pairhmm.ReadTable(reads, Lmax)
+    per_pair = pairhmm_cuda.kernel_layout(Lmax)["fm_stride"] * 4 + Lmax * Lmax * 6
+    monkeypatch.setattr(pairhmm, "BUDGET_BYTES", chunk * per_pair)
+    before = pairhmm_cuda.launches
+    with profiling.span("trial", root=True):
+        with profiling.span("msa.k2"):
+            posts, ea = pairhmm.k2_posteriors(table.side(a), table.side(b), Lmax, dev)
+    k2 = profiling.recent_trials()[-1][1]
+    batches = -(-len(a) // chunk)
+    assert pairhmm_cuda.launches == before + batches
+    assert k2["counts"] == {"reads": 30, "launches": batches, "pairs": 50, "waits": 1}
+    copies = [torch.as_tensor(v, device=dev) for v in (table.codes[a], table.codes[b], table.lengths[a],
+                                                        table.lengths[b])]
+    pc, ec = pairhmm_cuda.post_ea(*copies, Lmax)
+    assert torch.equal(posts, pc.to(torch.bfloat16)) and np.array_equal(ea, ec.cpu().numpy())
+
+
+def test_pairs_k2_on_the_card_is_the_cpu_route(dev):
+    """``_pairs_k2`` over trial-like clusters on the card: the CPU's
+    posteriors within one bf16 step, each EA score the native
+    ``mea_score`` of the card's own bf16 posterior, the same spans."""
+    rng = np.random.default_rng(21)
+    clusters = [_copies(rng, n) for n in (2, 3, 5, 8, 2, 12, 4)]
+    order = [0, 4, 1, 6, 2, 3, 5]
+    posts, ea, pt = _pairs_k2(clusters, order, 160, dev, {})
+    posts_c, _, pt_c = _pairs_k2(clusters, order, 160, torch.device("cpu"), {})
+    assert pt.span == pt_c.span and posts.shape == posts_c.shape
+    torch.testing.assert_close(posts.float().cpu(), posts_c.float(), atol=1e-2, rtol=1e-2)
+    pb = posts.float().cpu().numpy()
+    lx, ly = pt.table.lengths[pt.a], pt.table.lengths[pt.b]
+    for p in range(len(ea)):
+        assert np.float32(native_lib.mea_score_native(pb[p, : lx[p], : ly[p]])) == ea[p], p
 
 
 def test_edit_distance_device_matches_native(dev):
