@@ -40,7 +40,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    batch of 512 clusters (reads as in phase 3, Lmax = 160, Cmax = 192),
    codes and positions bit-equal: ``merge_dp`` (BuildPost + MEA DP + walk
    from the pair posteriors) at the first progressive wave (single reads
-   a side) and at the last (several gapped reads a side);
+   a side) and at the last (several gapped reads a side); then batches of
+   20 clusters of 32 and of 64 reads (buckets 32 and 64, both ballot
+   words of the member masks at 64) at the first and the last progressive
+   wave and at a refinement bipartition (even against odd reads);
 8. the same trial once more through the command line,
    ``python -m dna_ldpc_tpu_torch.cli simulate``, on codeword and oligo
    files written to a temporary directory in the reference's formats;
@@ -311,8 +314,9 @@ def _merge_waves(rng, dev, nb: int, C: int, Lmax: int, consistency_iters: int = 
         for c, cl in enumerate(clusters)
     ]
     Cmax = Lmax + device_msa.COLUMN_SLACK
-    Pblock = device_msa.build_pblock(P, nb)
-    del P
+    # a checkout whose merge reads an nb x nb block matrix (kernel_times.py --against)
+    block = getattr(device_msa, "build_pblock", None)
+    P = block(P, nb) if block else P.to(torch.bfloat16)
     lens = torch.as_tensor([[len(r) for r in cl] for cl in clusters], device=dev)
     cpos, width = device_msa._msa_init(lens, Cmax, Lmax)
     live = torch.ones(C, dtype=torch.bool, device=dev)
@@ -325,8 +329,8 @@ def _merge_waves(rng, dev, nb: int, C: int, Lmax: int, consistency_iters: int = 
             mA, mB = even, ~even
         cposA, wA = device_msa._project(cpos, mA, Cmax, Lmax)
         cposB, wB = device_msa._project(cpos, mB, Cmax, Lmax)
-        step = (Pblock, cpos, width, mA, mB, live, Cmax, Lmax)
-        yield k, (Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, Lmax), step
+        step = (P, cpos, width, mA, mB, live, Cmax, Lmax)
+        yield k, (P, cposA, cposB, mA, mB, wA, wB, Cmax, Lmax), step
         cpos, width, _, _ = device_msa._merge_step(*step)
 
 
@@ -1363,31 +1367,36 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f} s" for k, v in stages6.items()))
 
     # ---- 7. the merge kernel against its twin --------------------------------
-    nb, C7, Cmax = 8, 512, Lmax + device_msa.COLUMN_SLACK
+    Cmax = Lmax + device_msa.COLUMN_SLACK
     merge_err, merge_stats = 0, {}
-    for k, margs, _ in _merge_waves(np.random.default_rng(8), dev, nb, C7, Lmax):
-        if k in (0, nb - 2):
+    # (reads a cluster, clusters, the merges held against the twin): k < nb - 1 a progressive wave, nb - 1 the
+    # refinement bipartition; 20 clusters is about a bucket-64 batch of the deep-coverage trial
+    for nb, C7, held in ((8, 512, (0, 6)), (32, 20, (0, 30, 31)), (64, 20, (0, 62, 63))):
+        for k, margs, _ in _merge_waves(np.random.default_rng(nb), dev, nb, C7, Lmax):
+            if k not in held:
+                continue
             _, _, _, mA, mB, wA, wB, _, _ = margs
             codes_k, pos_k = mea_cuda.merge_walk(*margs)
             codes_r, pos_r = mea_cuda.merge_walk_ref(*margs)
             torch.cuda.synchronize()
             err = max((codes_k.int() - codes_r.int()).abs().max().item(), (pos_k - pos_r).abs().max().item())
             if err:
-                raise AssertionError(f"merge_dp differs from its twin at wave {k} (max abs {err})")
+                raise AssertionError(f"merge_dp differs from its twin at nb={nb}, merge {k} (max abs {err})")
             merge_err = max(merge_err, err)
             ms = _cuda_ms(lambda: mea_cuda.merge_walk(*margs), 20)
             plain = _cuda_ms(lambda: mea_cuda.merge_walk_ref(*margs), 2)
             nA, nB = mA.sum(1).tolist(), mB.sum(1).tolist()
             bound, by = roofline.merge_bound_ms(nA, nB, wA.tolist(), wB.tolist(), Cmax, clock_mhz)
+            what = f"wave {k + 1} of {nb - 1}" if k < nb - 1 else "refinement, even against odd reads"
             print(
-                f"[7] merge_dp vs twin, wave {k + 1} of {nb - 1}: {C7} clusters of {nb} reads, "
+                f"[7] merge_dp vs twin, {what}: {C7} clusters of {nb} reads, "
                 f"{sum(nA) / C7:.2f} x {sum(nB) / C7:.2f} reads a side, mean widths {wA.float().mean().item():.1f} x "
                 f"{wB.float().mean().item():.1f}, Cmax={Cmax}, mean path length "
                 f"{(codes_k != 0).sum(1).float().mean().item():.1f}; codes and positions equal; kernel {ms:.3f} ms, "
                 f"twin {plain:.3f} ms per merge; bound {bound:.4f} ms ({by}), {100 * bound / ms:.1f} % reached")
-            if k == 0:
+            if (nb, k) == (8, 0):
                 merge_stats = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
-    del margs
+        del margs
 
     # ---- 8. the same trial through the command line ------------------------
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)

@@ -5,25 +5,30 @@
 // dna_ldpc_tpu/ops/msa/device_msa.py (:175, :212, :257; one-hot matmuls
 // and two scans there, not a Pallas kernel).
 //
-// One entry, merge_dp: it reads its operand straight from the per-cluster
-// block matrix of pair posteriors (Pblock, bf16), sweeps the DP, packs the
-// choice plane and walks it back.
+// One entry, merge_dp: it reads its operand straight from the batch's
+// assembled pair tensor (bf16 [C, npair, L + 1, L + 1], pairs s1 < s2 in
+// cluster_pairs(nb) order, a zero gap row and column at L), sweeps the DP,
+// packs the choice plane and walks it back. The pair of members (s1, s2)
+// is read at its slot, as stored where s1 < s2 and transposed where
+// s1 > s2; a member met on both sides would add its zero diagonal block,
+// so it is skipped.
 //
 // What bounds the work on the card: the DP is a chain of wA + wB dependent
 // antidiagonals of ~4 operations per cell, and the operand is |A| x |B|
 // two-byte loads per cell (one when both sides are single reads); the
-// bytes that must move are the |A| x |B| blocks of Pblock, once. The old
+// bytes that must move are the |A| x |B| pair blocks, once. The old
 // kernel was held back by what it did around that work (a block barrier
 // per diagonal of the whole (Cmax + 1)^2 plane, one sector per 4-byte
 // operand, a byte per choice code, and an operand plane of Cmax^2 f32 per
 // cluster that BuildPost wrote to device memory with 4 nb launches just
 // before). The design:
 //
-// - One warp per cluster, no block barrier. Only the box
-//   [0..wA] x [0..wB] is swept: the walk starts at (wA, wB) and moves to
-//   smaller i and j only, and a cell of the box depends on cells of the
-//   box only. Diagonals the path does not visit are written as code 0,
-//   position 0.
+// - One warp per cluster, no block barrier, up to 64 members: each side's
+//   membership is one 64-bit mask, two ballots (members 0-31 and 32-63).
+//   Only the box [0..wA] x [0..wB] is swept: the walk starts at (wA, wB)
+//   and moves to smaller i and j only, and a cell of the box depends on
+//   cells of the box only. Diagonals the path does not visit are written
+//   as code 0, position 0.
 // - Lane l owns the strip of R = ceil((wB + 1) / 32) columns
 //   j = l R .. l R + R - 1 and walks down the rows as a wavefront: at step
 //   t it computes row i = t - l. The previous row of its strip stays in
@@ -32,22 +37,22 @@
 //   __shfl_up_sync. R is a template parameter (1..9, Cmax <= 287), so a
 //   step is one straight block of R cells. Within a step the only chain
 //   is one fmaxf per cell: max(B, X) is known from the previous row.
-// - Columns, not rows, are the strip: the operand is contiguous along j,
-//   so a lane's R operands of a row share one 32-byte sector of the bf16
-//   block. Operands do not depend on the DP, so a lane fetches them for a
-//   chunk of steps at once (about
-//   CHUNK_CELLS = 64 cells: 12 steps at R = 5) into registers, the loops
-//   over the members outermost: one memory latency per pair of members
-//   and chunk, with every cell's load in flight together, where a fetch
-//   per step paid it per pair of members and step.
-// - merge_dp resolves row(s, .) and col(s, .) of every member of A and B
-//   once per cluster into uint16 tables in shared memory, then per cell
-//   sums Pblock[row(s1, i-1), col(s2, j-1)] over the members of A in
-//   ascending order in f32, rounds to bf16, and sums over the members of B
-//   in ascending order in f32: the twin's sums without its zero terms (the
-//   values are non-negative, so the sums are equal bit for bit). Neither
-//   post [C, Cmax, Cmax] nor the first sum T [C, Cmax, nb (L + 1)] exists
-//   in device memory.
+// - Operands do not depend on the DP, so a lane fetches them for a chunk
+//   of steps at once (about CHUNK_CELLS = 64 cells: 12 steps at R = 5)
+//   into registers, the loops over the members outermost: one memory
+//   latency per pair of members and chunk, with every cell's load in
+//   flight together, where a fetch per step paid it per pair of members
+//   and step. A lane's R operands of a row share a 32-byte sector of a
+//   stored block (s1 < s2); in a transposed one its CH rows of a column do.
+// - merge_dp resolves the letter position u of every member of A and B at
+//   each of its profile columns once per cluster into uint16 tables in
+//   shared memory, then per cell sums the pair posterior of
+//   (u(s1, i-1), u(s2, j-1)) over the members of A in ascending order in
+//   f32, rounds to bf16, and sums over the members of B in ascending order
+//   in f32: the twin's sums without its zero terms (the values are
+//   non-negative, so the sums are equal bit for bit). Neither post
+//   [C, Cmax, Cmax] nor the first sum T [C, Cmax, nb (L + 1)] exists in
+//   device memory.
 // - The choice codes take two bits. A lane's strip of a step is one
 //   uint8/uint16/uint32 (R <= 4 / 8 / 9) at plane[t][lane]: 14 KB of
 //   shared memory per cluster at Cmax = 192 (the byte plane took 74 KB),
@@ -74,6 +79,7 @@ namespace {
 constexpr int CHUNK_CELLS = 64;  // cells of a lane whose operands are fetched together
 constexpr int CB = 1, CX = 2, CY = 3;
 constexpr int RMAX = 9;  // columns per lane: Cmax + 1 <= 32 RMAX
+constexpr int MAX_MEMBERS = 64;  // sequences a cluster: two ballots of a warp
 // wavefront steps per operand fetch of a lane that owns R columns
 __host__ __device__ constexpr int chunk_steps(int R) { return CHUNK_CELLS / R < 2 ? 2 : CHUNK_CELLS / R > 16 ? 16 : CHUNK_CELLS / R; }
 constexpr unsigned FULL = 0xffffffffu;
@@ -84,21 +90,26 @@ using strip_word = std::conditional_t<(R <= 4), uint8_t, std::conditional_t<(R <
 
 constexpr int word_bytes(int R) { return R <= 4 ? 1 : R <= 8 ? 2 : 4; }
 
-// Operand source of merge_dp: BuildPost from the cluster's block matrix.
-// rowtab[s][i] is the row of Pblock that sequence s of A contributes to
-// cell row i (the zero gap row of its block for i = 0, a gap, or past the
-// table's real entries), coltab[s][j] the column of sequence s of B.
-struct BlockSource {
-    const uint16_t* pb;      // Pblock[c] as bf16 bit patterns, [K, K]
+__device__ __forceinline__ int slot_of(int i, int j, int nb) {  // pair i < j in cluster_pairs(nb) order
+    return i * nb - i * (i + 1) / 2 + (j - i - 1);
+}
+
+// Operand source of merge_dp: BuildPost from the cluster's pair tensor.
+// rowtab[s][i] is the letter position of sequence s of A at cell row i (L,
+// the zero gap row, for i = 0, a gap, or past the table's real entries),
+// coltab[s][j] that of sequence s of B.
+struct PairSource {
+    const uint16_t* pb;      // the cluster's pairs as bf16 bit patterns, [npair, L1, L1]
     const uint16_t* rowtab;  // [nb][TL], shared memory
     const uint16_t* coltab;  // [nb][TL]
-    int K, TL, wa;
-    uint32_t maskA, maskB;
+    int L1, TL, nb, wa;
+    uint64_t maskA, maskB;
 
     // BuildPost of cells (i0 + p, j0 + r), p < CH, r < R. A row off the
     // box reads table entry 0, the zero gap row: its operands are 0.
     template <int R, int CH>
     __device__ __forceinline__ void fetch(int i0, int j0, float (&op)[CH][R]) const {
+        const int blk = L1 * L1;
         int row[CH];
 #pragma unroll
         for (int p = 0; p < CH; ++p) {
@@ -106,8 +117,9 @@ struct BlockSource {
 #pragma unroll
             for (int r = 0; r < R; ++r) op[p][r] = 0.0f;
         }
-        for (uint32_t mb = maskB; mb; mb &= mb - 1) {
-            const uint16_t* ct = coltab + (__ffs(mb) - 1) * TL + j0;
+        for (uint64_t mb = maskB; mb; mb &= mb - 1) {
+            const int s2 = __ffsll(mb) - 1;
+            const uint16_t* ct = coltab + s2 * TL + j0;
             int col[R];
             float first[CH][R];
 #pragma unroll
@@ -116,14 +128,30 @@ struct BlockSource {
             for (int p = 0; p < CH; ++p)
 #pragma unroll
                 for (int r = 0; r < R; ++r) first[p][r] = 0.0f;
-            for (uint32_t ma = maskA; ma; ma &= ma - 1) {
-                const uint16_t* rt = rowtab + (__ffs(ma) - 1) * TL;
+            // members of A in ascending order: below s2 the pair (s1, s2) as
+            // stored (row u1, column u2), above it (s2, s1) transposed
+            for (uint64_t ma = maskA & ((1ull << s2) - 1); ma; ma &= ma - 1) {
+                const int s1 = __ffsll(ma) - 1;
+                const uint16_t* pp = pb + (size_t)slot_of(s1, s2, nb) * blk;
+                const uint16_t* rt = rowtab + s1 * TL;
 #pragma unroll
                 for (int p = 0; p < CH; ++p) {
-                    const uint16_t* pr = pb + (uint32_t)rt[row[p]] * (uint32_t)K;
+                    const uint16_t* pr = pp + (int)rt[row[p]] * L1;
 #pragma unroll
                     for (int r = 0; r < R; ++r)
                         first[p][r] += __uint_as_float((uint32_t)__ldg(pr + col[r]) << 16);
+                }
+            }
+            for (uint64_t ma = maskA & ~((2ull << s2) - 1); ma; ma &= ma - 1) {
+                const int s1 = __ffsll(ma) - 1;
+                const uint16_t* pp = pb + (size_t)slot_of(s2, s1, nb) * blk;
+                const uint16_t* rt = rowtab + s1 * TL;
+#pragma unroll
+                for (int p = 0; p < CH; ++p) {
+                    const uint16_t* pc = pp + (int)rt[row[p]];
+#pragma unroll
+                    for (int r = 0; r < R; ++r)
+                        first[p][r] += __uint_as_float((uint32_t)__ldg(pc + col[r] * L1) << 16);
                 }
             }
 #pragma unroll
@@ -137,7 +165,7 @@ struct BlockSource {
 // The box sweep and the walk of one cluster by one warp (file comment).
 // plane: (wa + 32) x 32 words of shared memory at least.
 template <int R>
-__device__ void sweep_and_walk(const BlockSource& src, int wa, int wb, void* plane_raw,
+__device__ void sweep_and_walk(const PairSource& src, int wa, int wb, void* plane_raw,
                                uint8_t* codes, int32_t* pos)
 {
     using word = strip_word<R>;
@@ -218,7 +246,7 @@ __device__ void sweep_and_walk(const BlockSource& src, int wa, int wb, void* pla
     }
 }
 
-__device__ __forceinline__ void sweep_by_strip(const BlockSource& src, int wa, int wb, void* plane,
+__device__ __forceinline__ void sweep_by_strip(const PairSource& src, int wa, int wb, void* plane,
                                                uint8_t* codes, int32_t* pos)
 {
     static_assert(RMAX == 9, "one case per strip width");
@@ -249,7 +277,7 @@ __device__ __forceinline__ void cluster_setup(const int32_t* wA, const int32_t* 
 }
 
 __global__ void __launch_bounds__(32) merge_dp_kernel(
-    const uint16_t* __restrict__ Pblock,   // [C, K, K] bf16, K = nb (L + 1)
+    const uint16_t* __restrict__ pairs,    // [C, npair, L + 1, L + 1] bf16
     const int32_t* __restrict__ cposA,     // [C, nb, Cmax + 1]
     const int32_t* __restrict__ cposB,
     const uint8_t* __restrict__ mA,        // [C, nb] bool
@@ -262,34 +290,39 @@ __global__ void __launch_bounds__(32) merge_dp_kernel(
     uint16_t* rowtab = reinterpret_cast<uint16_t*>(smem + plane_bytes);
     uint16_t* coltab = rowtab + nb * TL;
     const int c = blockIdx.x, lane = threadIdx.x;
-    const int L1 = L + 1, K = nb * L1, CP1 = Cmax + 1;
+    const int L1 = L + 1, CP1 = Cmax + 1, npair = nb * (nb - 1) / 2;
     uint8_t* codes_c = codes + (size_t)c * 2 * Cmax;
     int32_t* pos_c = pos + (size_t)c * 2 * Cmax;
     int wa, wb;
     cluster_setup(wA, wB, codes_c, pos_c, Cmax, wa, wb);
 
-    const uint32_t maskA = __ballot_sync(FULL, lane < nb && mA[(size_t)c * nb + lane]);
-    const uint32_t maskB = __ballot_sync(FULL, lane < nb && mB[(size_t)c * nb + lane]);
+    const uint8_t* mAc = mA + (size_t)c * nb;
+    const uint8_t* mBc = mB + (size_t)c * nb;
+    const uint64_t maskA = (uint64_t)__ballot_sync(FULL, lane < nb && mAc[lane]) |
+                           (uint64_t)__ballot_sync(FULL, lane + 32 < nb && mAc[lane + 32]) << 32;
+    const uint64_t maskB = (uint64_t)__ballot_sync(FULL, lane < nb && mBc[lane]) |
+                           (uint64_t)__ballot_sync(FULL, lane + 32 < nb && mBc[lane + 32]) << 32;
     for (int side = 0; side < 2; ++side) {
         const int32_t* cpos = (side ? cposB : cposA) + (size_t)c * nb * CP1;
         uint16_t* tab = side ? coltab : rowtab;
-        for (uint32_t m = side ? maskB : maskA; m; m &= m - 1) {
-            const int s = __ffs(m) - 1;
+        for (uint64_t m = side ? maskB : maskA; m; m &= m - 1) {
+            const int s = __ffsll(m) - 1;
             for (int k = lane; k < TL; k += 32) {
                 const int u = (k >= 1 && k <= Cmax) ? min(max(cpos[s * CP1 + k - 1], 0), L) : L;
-                tab[s * TL + k] = (uint16_t)(s * L1 + u);
+                tab[s * TL + k] = (uint16_t)u;
             }
         }
     }
     __syncwarp();
 
-    const BlockSource src{Pblock + (size_t)c * K * K, rowtab, coltab, K, TL, wa, maskA, maskB};
+    const PairSource src{pairs + (size_t)c * npair * L1 * L1, rowtab, coltab, L1, TL, nb, wa, maskA, maskB};
     sweep_by_strip(src, wa, wb, smem, codes_c, pos_c);
 }
 
 // Shared memory of one cluster's warp: the packed plane, (Cmax + 32) steps
-// x 32 lanes of the widest strip's word (two uint16 index tables of nb x 32
-// strips entries follow it). -1: Cmax is beyond the kernel.
+// x 32 lanes of the widest strip's word (two uint16 tables of letter
+// positions, nb x 32 strips entries each, follow it: 57 KB at nb = 64 and
+// Cmax = 192). -1: Cmax is beyond the kernel.
 int plane_bytes_of(int Cmax)
 {
     const int R = Cmax / 32 + 1;
@@ -306,19 +339,19 @@ cudaError_t allow_smem(Kernel kernel, size_t smem)
 
 }  // namespace
 
-extern "C" int merge_dp_launch(const void* Pblock, const void* cposA, const void* cposB, const void* mA,
+extern "C" int merge_dp_launch(const void* pairs, const void* cposA, const void* cposB, const void* mA,
                                const void* mB, const void* wA, const void* wB, void* codes, void* pos,
                                int C, int nb, int L, int Cmax, void* stream)
 {
     if (C == 0) return 0;
     const int plane_bytes = plane_bytes_of(Cmax);
-    if (plane_bytes < 0 || nb < 1 || nb > 32 || (long long)nb * (L + 1) > 65535) return (int)cudaErrorInvalidValue;
+    if (plane_bytes < 0 || nb < 1 || nb > MAX_MEMBERS || L < 1 || L + 1 > 65535) return (int)cudaErrorInvalidValue;
     const int TL = 32 * (Cmax / 32 + 1);
     const size_t smem = (size_t)plane_bytes + (size_t)2 * nb * TL * sizeof(uint16_t);
     const cudaError_t e = allow_smem(merge_dp_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     merge_dp_kernel<<<C, 32, smem, (cudaStream_t)stream>>>(
-        (const uint16_t*)Pblock, (const int32_t*)cposA, (const int32_t*)cposB, (const uint8_t*)mA,
+        (const uint16_t*)pairs, (const int32_t*)cposA, (const int32_t*)cposB, (const uint8_t*)mA,
         (const uint8_t*)mB, (const int32_t*)wA, (const int32_t*)wB, (uint8_t*)codes, (int32_t*)pos,
         nb, L, Cmax, plane_bytes, TL);
     return (int)cudaGetLastError();

@@ -7,7 +7,7 @@ the MEA DP with its traceback, the profile machinery), the per-cluster
 (``_align_clusters_device``: pair-HMM kernel, consistency transform,
 progressive joins and refinement with the merge kernel; only the column
 maps leave the card), which hands the clusters it cannot take (more than
-32 reads, reads past the column maps' bound, column overflow) to
+64 reads, reads past the column maps' bound, column overflow) to
 ``_align_clusters_fused``: K2 and the transform on the device, the
 progressive and refine stages in the host C++ aligner. Both run K2 through
 ``_pairs_k2`` and the transform through ``consistency.transform_pairs``.
@@ -53,7 +53,8 @@ N_WORKERS = min(8, os.cpu_count() or 1)  # host aligner threads
 
 # clusters of >= 2 reads align_clusters was given, and of those the clusters
 # the device MSA handed to the host aligner (oversized or column overflow),
-# since the last reset
+# since the last reset: process totals (a trial's record counts its own on
+# the spans ``msa.batch`` and ``msa.fallback``)
 msa_clusters = 0
 fallback_clusters = 0
 
@@ -593,8 +594,9 @@ def _align_clusters_device(
     align.py:705-972``): the posteriors stay on the device from the
     pair-HMM to the last refinement merge; only the column maps leave it.
 
-    1. clusters of 2..32 reads are grouped into the device-MSA buckets
-       (``device_msa.MSA_BUCKETS``), and K2 runs over every pair of them
+    1. clusters of 2..64 reads are grouped into the device-MSA buckets
+       (``device_msa.MSA_BUCKETS``, up to 64 reads, past the JAX
+       package's 32), and K2 runs over every pair of them
        (buckets ascending, clusters contiguous), posteriors kept in bf16;
     2. EA distances give each cluster's UPGMA join order;
     3. per batch of a bucket (its size from the byte budget),
@@ -606,11 +608,13 @@ def _align_clusters_device(
     budget, or all where a read passes the column maps' bound, go through
     ``_align_clusters_fused``. Spans and ``timings`` keys: "pairhmm"
     (``msa.pairs``, host: the read table and the pairs' rows; ``msa.k2``),
-    per batch (``msa.batch``) "consistency" (``msa.assemble``, host: the
+    per batch (``msa.batch``, which counts its ``bucket``, ``clusters``
+    and ``pairs``) "consistency" (``msa.assemble``, host: the
     pair ids and masks; ``msa.consistency``: uploads, gather, transform), "msa_device" (``msa.joins``, host: UPGMA;
     ``msa.device``: the progressive and refine merges), "msa_collect"
     (``msa.collect``: the column maps' download, ``msa.rows``), plus the
-    fallback flow's keys under ``msa.fallback`` when it runs."""
+    fallback flow's keys under ``msa.fallback`` (which counts its
+    ``clusters`` and ``reads``) when it runs."""
     global fallback_clusters
     from .device_msa import MSA_BUCKETS, assemble_transform, cluster_bytes, start_msa_batch
 
@@ -643,6 +647,9 @@ def _align_clusters_device(
         for mlo in range(0, len(members), C_cap):
             batch = members[mlo : mlo + C_cap]
             with span("msa.batch"):
+                count("bucket", nb)
+                count("clusters", len(batch))
+                count("pairs", int(sum(pt.n[c] * (pt.n[c] - 1) // 2 for c in batch)))
                 with span("msa.assemble", kind=HOST, timings=timings, key="consistency"):
                     ids, mask, inv_n, lengths = pt.batch(batch, nb)
                 with span("msa.consistency", timings=timings, key="consistency"):
@@ -677,6 +684,8 @@ def _align_clusters_device(
     if fallback:
         fallback_clusters += len(fallback)
         with span("msa.fallback"):
+            count("clusters", len(fallback))
+            count("reads", sum(len(clusters[c]) for c in fallback))
             rows = _align_clusters_fused([clusters[c] for c in fallback], refine_iters, consistency_iters, seed, device,
                                          timings)
         for c, r in zip(fallback, rows):

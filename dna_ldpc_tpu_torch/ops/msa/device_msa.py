@@ -23,10 +23,11 @@ Reference semantics (MUSCLE v5, vendored in the reference):
 Representation: per cluster c and sequence s, ``cpos[c, s, u]`` holds the
 letter position of s at column u of s's current profile, or the sentinel
 L for a gap. Projection compacts the columns where a selected row has a
-letter (cumsum + scatter + gather); BuildPost gathers the rows and columns
-of a per-cluster block matrix of the pair posteriors (``build_pblock``) —
+letter (cumsum + scatter + gather); BuildPost reads the members' pairs at
+their columns in the batch's assembled pair tensor (s1 > s2 transposed) —
 inside the merge kernel on the card, as eager gathers in its twin — where
-the JAX package multiplies by one-hot matrices on the TPU's matrix unit:
+the JAX package lays the pairs out as a per-cluster block matrix
+(``build_pblock``) and multiplies by one-hot matrices on the TPU's matrix unit:
 the same values, the first sum rounded to bf16 as the JAX package rounds
 its first product, the second kept in f32. Gap insertion remaps cpos
 through the path's column maps.
@@ -49,8 +50,10 @@ from .consistency import consistency_core, transform_pairs
 from .mea_cuda import CB, CX, CY, merge_walk
 
 # cluster-size buckets of the device MSA (n pads up to the next bucket;
-# zero pair blocks and all-false masks make pad slots inert)
-MSA_BUCKETS = (2, 4, 8, 12, 16, 32)
+# zero pair blocks and all-false masks make pad slots inert). The top
+# bucket is the merge kernel's limit of 64 members, past the JAX package's
+# 32: a larger cluster goes to the host aligner
+MSA_BUCKETS = (2, 4, 8, 12, 16, 32, 64)
 # column budget Cmax = Lpad + COLUMN_SLACK: reads of one strand differ by a
 # few indels, so the aligned width barely exceeds the longest read (width
 # overflow falls back to the host aligner)
@@ -59,11 +62,11 @@ COLUMN_SLACK = 32
 
 def cluster_bytes(nb: int, Lpad: int) -> int:
     """Device bytes one cluster of bucket nb holds during a batch: the
-    assembled bf16 pairs and the bf16 Pblock. The merge kernel builds its
-    operand on chip; its twin on the CPU still makes BuildPost's f32 first
-    sum, about a fifth more at bucket 8."""
+    assembled bf16 pairs, which the merge kernel reads in place (26 MB at
+    bucket 32, 104 MB at 64, at Lpad 160). Its twin on the CPU also makes
+    BuildPost's f32 first sum, [Cmax, nb (Lpad + 1)] a merge."""
     L1 = Lpad + 1
-    return nb * (nb - 1) // 2 * L1 * L1 * 2 + (nb * L1) ** 2 * 2
+    return nb * (nb - 1) // 2 * L1 * L1 * 2
 
 
 def wave_masks(joins: list[tuple[int, int]], n_true: int, nb: int):
@@ -106,30 +109,15 @@ def _project(cpos, mask, Cmax: int, L: int):
     return cposS, w
 
 
-def build_pblock(P, nb: int):
-    """Arrange a batch's pair posteriors [C, npair, L+1, L+1] (zero gap
-    row/col at L) as the symmetric per-sequence block matrix
-    ``Pblock[c, s1*(L+1)+l, s2*(L+1)+m]`` in bf16 (zero diagonal blocks,
-    lower triangle transposed)."""
-    C, npair, L1, _ = P.shape
-    Pb = P.to(torch.bfloat16)
-    out = torch.zeros((C, nb, L1, nb, L1), dtype=torch.bfloat16, device=P.device)
-    ii, jj = np.triu_indices(nb, k=1)
-    for s, (a, b) in enumerate(zip(ii.tolist(), jj.tolist())):
-        out[:, a, :, b, :] = Pb[:, s]
-        out[:, b, :, a, :] = Pb[:, s].transpose(1, 2)
-    return out.view(C, nb * L1, nb * L1)
-
-
-def _merge_step(Pblock, cpos, width, mA, mB, upd_ok, Cmax: int, L: int):
-    """One batched merge (progressive wave or refine re-alignment).
-    Returns (cpos', width', changed [C] bool, overflow_now [C] bool)."""
+def _merge_step(P, cpos, width, mA, mB, upd_ok, Cmax: int, L: int):
+    """One batched merge (progressive wave or refine re-alignment) on the
+    batch's bf16 pair tensor ``P`` [C, npair, L+1, L+1]. Returns (cpos', width', changed [C] bool, overflow_now [C] bool)."""
     C, nb, CP1 = cpos.shape
     dvec = torch.arange(1, 2 * Cmax + 1, device=cpos.device)[None, :]
 
     cposA, wA = _project(cpos, mA, Cmax, L)
     cposB, wB = _project(cpos, mB, Cmax, L)
-    codes, pos = merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L)
+    codes, pos = merge_walk(P, cposA, cposB, mA, mB, wA, wB, Cmax, L)
     pos = pos.long()
 
     valid = codes != 0
@@ -176,7 +164,7 @@ def _msa_init(lens, Cmax: int, L: int):
     return cpos, lens.to(torch.int32)
 
 
-def _msa_progressive(Pblock, cpos, width, jA, jB, Cmax: int, L: int):
+def _msa_progressive(P, cpos, width, jA, jB, Cmax: int, L: int):
     """Run the progressive waves (jA/jB: [nwaves, C, nb] bool numpy; a
     wave no cluster joins in is inert and skipped). Returns
     (cpos, width, overflow [C]). Each merge is a span ``msa.merge``; the
@@ -190,7 +178,7 @@ def _msa_progressive(Pblock, cpos, width, jA, jB, Cmax: int, L: int):
         mB = torch.as_tensor(jB[k], device=dev)
         wait(dev, 2)
         with span("msa.merge"):
-            cpos, width, _, ovf_now = _merge_step(Pblock, cpos, width, mA, mB, ~ovf, Cmax, L)
+            cpos, width, _, ovf_now = _merge_step(P, cpos, width, mA, mB, ~ovf, Cmax, L)
         ovf = ovf | (ovf_now & mA.any(1))
         count("merges")
     return cpos, width, ovf
@@ -202,7 +190,7 @@ def _any_live(live) -> bool:
     return bool(live.any())
 
 
-def _msa_refine(Pblock, cpos, width, frozen, ovf, rA, rows_pc, Cmax: int, L: int):
+def _msa_refine(P, cpos, width, frozen, ovf, rA, rows_pc, Cmax: int, L: int):
     """Run the refinement loop to convergence (rA: [iters, C, nb]
     bipartition masks, side B = the complement over the true sequences;
     rows_pc: [C] per-cluster mask-table length). A cluster freezes after
@@ -219,7 +207,7 @@ def _msa_refine(Pblock, cpos, width, frozen, ovf, rA, rows_pc, Cmax: int, L: int
         row_valid = mA.any(1)
         upd_ok = ~frozen & ~ovf
         with span("msa.merge"):
-            cpos, width, changed, ovf_now = _merge_step(Pblock, cpos, width, mA, mB, upd_ok, Cmax, L)
+            cpos, width, changed, ovf_now = _merge_step(P, cpos, width, mA, mB, upd_ok, Cmax, L)
         ovf = ovf | (ovf_now & upd_ok & row_valid)
         act = row_valid & upd_ok
         unchanged = torch.where(act, torch.where(changed, 0, unchanged + 1), unchanged)
@@ -334,11 +322,11 @@ def start_msa_batch(
             jA[:, c, :], jB[:, c, :] = wave_masks(joins, len(seqs), nb)
 
     with span("msa.progressive"):
-        Pblock = build_pblock(P, nb)
+        P = P.to(torch.bfloat16).contiguous()
         lens_t = torch.as_tensor(lens, device=dev)
         wait(dev)
         cpos, width = _msa_init(lens_t, Cmax, L)
-        cpos, width, ovf = _msa_progressive(Pblock, cpos, width, jA, jB, Cmax, L)
+        cpos, width, ovf = _msa_progressive(P, cpos, width, jA, jB, Cmax, L)
 
     with span("msa.refine"):
         # refinement: per-cluster mask tables by true n (clusters with n < 3
@@ -358,7 +346,7 @@ def start_msa_batch(
             frozen = torch.as_tensor(np.arange(C_cap) >= C_true, device=dev)
             rA_t, rows_pc_t = torch.as_tensor(rA, device=dev), torch.as_tensor(rows_pc, device=dev)
             wait(dev, 3)
-            cpos, width, frozen, ovf = _msa_refine(Pblock, cpos, width, frozen, ovf, rA_t, rows_pc_t, Cmax, L)
+            cpos, width, frozen, ovf = _msa_refine(P, cpos, width, frozen, ovf, rA_t, rows_pc_t, Cmax, L)
     return MsaJob(seqs_list, cpos, width, ovf, L)
 
 

@@ -1,31 +1,38 @@
 """The merge of the device MSA — BuildPost, the MEA max-DP and its
 traceback — as one hand-written CUDA kernel, and its plain torch twin.
 
-``merge_walk`` (kernel ``merge_dp``, ``csrc/mea_dp.cu``) takes the
-per-cluster block matrix of pair posteriors and the two projected operands
-and returns the MEA path of each cluster's merge. It replaces the XLA
-program ``_build_post`` -> ``_mea_forward`` -> ``_walk`` of
+``merge_walk`` (kernel ``merge_dp``, ``csrc/mea_dp.cu``) takes the batch's
+assembled pair posteriors and the two projected operands and returns the
+MEA path of each cluster's merge. It replaces the XLA program
+``_build_post`` -> ``_mea_forward`` -> ``_walk`` of
 ``dna_ldpc_tpu/ops/msa/device_msa.py`` (:175, :212, :257; one-hot matmuls
 and two scans in the JAX package, not a Pallas kernel). The kernel reads
-its operand straight from ``Pblock``, so neither the profile-profile
-posterior ``post [C, Cmax, Cmax]`` nor BuildPost's first sum
-``T [C, Cmax, nb (L + 1)]`` exists in device memory.
+its operand straight from the pair tensor ``P [C, npair, L+1, L+1]``
+(pairs s1 < s2 in cluster_pairs(nb) slots): the pair (s1, s2) as stored
+where s1 < s2, transposed where s1 > s2. So neither the JAX package's
+per-cluster block matrix ``Pblock [C, nb (L+1), nb (L+1)]`` (the pairs
+and their transposes laid out by member, zero diagonal blocks), nor the
+profile-profile posterior ``post [C, Cmax, Cmax]``, nor BuildPost's first
+sum ``T [C, Cmax, nb (L + 1)]`` exists in device memory.
 
 On CUDA tensors it launches the kernel or raises; on CPU tensors it runs
 the twin (``merge_walk_ref`` = ``_build_post`` + ``mea_walk_ref``, the
 eager gathers and scans).
 
-BuildPost, per cell (x, y) of the operands' (wA x wB) box::
+BuildPost, per cell (x, y) of the operands' (wA x wB) box, with
+``Pblock[c, s1 (L+1) + l1, s2 (L+1) + l2]`` standing for
+``P[c, slot(s1, s2), l1, l2]`` (s1 < s2), ``P[c, slot(s2, s1), l2, l1]``
+(s1 > s2) and 0 (s1 = s2)::
 
     post[x, y] = sum over s2 in B, ascending, in f32, of
                    f32(bf16(sum over s1 in A, ascending, in f32, of
                             Pblock[c, s1 (L+1) + cposA[c, s1, x],
                                       s2 (L+1) + cposB[c, s2, y]]))
 
-(a gap sentinel ``cpos = L`` reads the zero gap row or column of its own
-block; the twin adds the zero gap row of block 0 for every sequence
-outside A or B, which changes no sum of non-negative values, so the kernel
-loops over the members only).
+(a gap sentinel ``cpos = L`` reads the zero gap row or column of the
+pair; the twin adds the zero gap row for every sequence outside A or B,
+which changes no sum of non-negative values, so the kernel loops over the
+members only).
 
 The DP (MUSCLE's CalcAlnFlat + TraceBackFlat): cell (i, j) of the
 (Cmax + 1) x (Cmax + 1) plane takes B = S(i-1, j-1) + post[i-1, j-1],
@@ -52,28 +59,46 @@ merge_launches = 0  # merge_dp launches since the last reset (main-path evidence
 # the kernel's lanes hold strips of up to MAX_STRIP columns of the box
 MAX_STRIP = 9
 MAX_CMAX = 32 * MAX_STRIP - 1
+MAX_MEMBERS = 64  # sequences a cluster: a warp's two ballots
 
 
-def _build_post(Pblock, cposA, cposB, mA, mB, Cmax: int, L: int):
+def _row_block(P, s: int, nb: int):
+    """Row block s of the JAX package's ``Pblock`` from the pair tensor:
+    [C, L+1, nb (L+1)], the pair (s, s2) as stored for s2 > s, (s2, s)
+    transposed for s2 < s, zero for s2 = s."""
+    C, _, L1, _ = P.shape
+    blocks = []
+    for s2 in range(nb):
+        if s2 == s:
+            blocks.append(P.new_zeros((C, L1, L1)))
+        elif s < s2:
+            blocks.append(P[:, s * nb - s * (s + 1) // 2 + s2 - s - 1])
+        else:
+            blocks.append(P[:, s2 * nb - s2 * (s2 + 1) // 2 + s - s2 - 1].transpose(1, 2))
+    return torch.cat(blocks, 2)
+
+
+def _build_post(P, cposA, cposB, mA, mB, Cmax: int, L: int):
     """Profile-profile posterior (BuildPost): [C, Cmax, Cmax] f32.
 
     T[c, x, (s2, l2)] = sum over s1 in A of Pblock[c, s1*(L+1) +
     cposA[c, s1, x], (s2, l2)] in f32, rounded to bf16; then post[c, x, y]
-    = sum over s2 in B of T[c, x, s2*(L+1) + cposB[c, s2, y]] in f32. Gap
-    sentinels and rows outside A (columns outside B) read the zero gap
-    row (column) L of block 0."""
+    = sum over s2 in B of T[c, x, s2*(L+1) + cposB[c, s2, y]] in f32
+    (``Pblock`` as the module docstring reads it from the pair tensor
+    ``P``). Gap sentinels and rows outside A (columns outside B) read a
+    zero gap row (column)."""
     C, nb, _ = cposA.shape
     L1 = L + 1
     K = nb * L1
     base = torch.arange(nb, device=cposA.device)[None, :, None] * L1
-    rows = torch.where(mA[:, :, None], cposA[:, :, :Cmax].long() + base, L)
+    rows = torch.where(mA[:, :, None], cposA[:, :, :Cmax].long(), L)
     cols = torch.where(mB[:, :, None], cposB[:, :, :Cmax].long() + base, L)
-    T = torch.zeros((C, Cmax, K), dtype=torch.float32, device=Pblock.device)
+    T = torch.zeros((C, Cmax, K), dtype=torch.float32, device=P.device)
     for s in range(nb):
-        T += Pblock.gather(1, rows[:, s, :, None].expand(C, Cmax, K))
+        T += _row_block(P, s, nb).gather(1, rows[:, s, :, None].expand(C, Cmax, K))
     Tb = T.to(torch.bfloat16)
     del T
-    post = torch.zeros((C, Cmax, Cmax), dtype=torch.float32, device=Pblock.device)
+    post = torch.zeros((C, Cmax, Cmax), dtype=torch.float32, device=P.device)
     for s in range(nb):
         post += Tb.gather(2, cols[:, s, None, :].expand(C, Cmax, Cmax))
     return post
@@ -138,10 +163,10 @@ def mea_walk_ref(post, wA, wB, Cmax: int):
     return codes, pos
 
 
-def merge_walk_ref(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
+def merge_walk_ref(P, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
     """Plain torch twin of ``merge_dp``: BuildPost into device memory, then
     the full-plane DP and walk."""
-    return mea_walk_ref(_build_post(Pblock, cposA, cposB, mA, mB, Cmax, L), wA, wB, Cmax)
+    return mea_walk_ref(_build_post(P, cposA, cposB, mA, mB, Cmax, L), wA, wB, Cmax)
 
 
 def _one_device(*tensors) -> torch.device:
@@ -156,35 +181,36 @@ def _one_device(*tensors) -> torch.device:
     return dev
 
 
-def merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
+def merge_walk(P, cposA, cposB, mA, mB, wA, wB, Cmax: int, L: int):
     """MEA path of each cluster's merge of the profiles A and B, straight
     from the pair posteriors: the ``merge_dp`` kernel on CUDA tensors, the
     plain twin on CPU tensors (module docstring).
 
-    Pblock: [C, nb (L+1), nb (L+1)] bf16 (``device_msa.build_pblock``);
-    cposA, cposB: [C, nb, Cmax+1] int32 projected column maps (gap = L);
-    mA, mB: [C, nb] bool membership; wA, wB: [C] int32 operand widths.
-    Returns (codes [C, 2 Cmax] uint8, pos [C, 2 Cmax] int32) indexed by
-    diagonal d - 1."""
+    P: [C, npair, L+1, L+1] bf16, the batch's assembled pairs in
+    cluster_pairs(nb) slots with a zero gap row and column at L
+    (``device_msa.assemble_transform``); cposA, cposB: [C, nb, Cmax+1]
+    int32 projected column maps (gap = L); mA, mB: [C, nb] bool
+    membership; wA, wB: [C] int32 operand widths. Returns (codes
+    [C, 2 Cmax] uint8, pos [C, 2 Cmax] int32) indexed by diagonal d - 1."""
     global merge_launches
     C, nb = mA.shape
-    K = nb * (L + 1)
-    if (Pblock.shape != (C, K, K) or Pblock.dtype != torch.bfloat16 or cposA.shape != (C, nb, Cmax + 1)
+    npair = nb * (nb - 1) // 2
+    if (P.shape != (C, npair, L + 1, L + 1) or P.dtype != torch.bfloat16 or cposA.shape != (C, nb, Cmax + 1)
             or cposB.shape != cposA.shape or mB.shape != (C, nb) or wA.shape != (C,) or wB.shape != (C,)):
-        raise ValueError("Pblock must be [C, nb (L+1), nb (L+1)] bf16, cposA/cposB [C, nb, Cmax+1], mA/mB [C, nb], "
+        raise ValueError("P must be [C, npair, L+1, L+1] bf16, cposA/cposB [C, nb, Cmax+1], mA/mB [C, nb], "
                          "wA/wB [C]")
     if mA.dtype != torch.bool or mB.dtype != torch.bool:
         raise ValueError("mA and mB must be bool")
-    dev = _one_device(Pblock, cposA, cposB, mA, mB, wA, wB)
+    dev = _one_device(P, cposA, cposB, mA, mB, wA, wB)
     if dev.type == "cpu":
-        return merge_walk_ref(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L)
-    if nb > 32 or K > 65535:
-        raise ValueError(f"nb={nb}, L={L}: the kernel takes at most 32 sequences and 65535 rows of Pblock")
+        return merge_walk_ref(P, cposA, cposB, mA, mB, wA, wB, Cmax, L)
+    if nb > MAX_MEMBERS or L + 1 > 65535:
+        raise ValueError(f"nb={nb}, L={L}: the kernel takes at most {MAX_MEMBERS} sequences and L + 1 <= 65535")
     if Cmax > MAX_CMAX:
         raise ValueError(f"Cmax={Cmax} exceeds the kernel's {MAX_STRIP} columns per lane (Cmax <= {MAX_CMAX})")
     from ... import cuda_lib
 
-    args = (Pblock.contiguous(), cposA.to(torch.int32).contiguous(), cposB.to(torch.int32).contiguous(),
+    args = (P.contiguous(), cposA.to(torch.int32).contiguous(), cposB.to(torch.int32).contiguous(),
             mA.contiguous(), mB.contiguous(), wA.to(torch.int32).contiguous(), wB.to(torch.int32).contiguous())
     codes = torch.empty((C, 2 * Cmax), dtype=torch.uint8, device=dev)
     pos = torch.empty((C, 2 * Cmax), dtype=torch.int32, device=dev)

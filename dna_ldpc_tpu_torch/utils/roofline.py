@@ -29,8 +29,8 @@ and ~8):
   (wA + 1) x (wB + 1) box: |A| |B| adds, |B| roundings to bf16 and the
   DP's one add, two compares and the choice code (~4); its bytes are the
   wA x wB entries that the column maps address in each of the |A| x |B|
-  blocks of ``Pblock`` that the masks select, each read once (no entry
-  outside the box can reach the output).
+  pairs of the pair tensor that the masks select, each read once (no
+  entry outside the box can reach the output).
 - the window kernel (``csrc/window_bp.cu``), per edge and frame-iteration
   run: 2 special-function and 5 f32 operations, and 5 bytes a variable of
   each frame (its LLR in, its decision out): the counts of the
@@ -85,8 +85,8 @@ def k2_bound_ms(lx, ly, Lmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
 def merge_bound_ms(nA, nB, wA, wB, Cmax: int, sm_clock_mhz: float = DEFAULT_SM_CLOCK_MHZ):
     """``merge_dp`` on a batch of clusters whose operands hold ``nA``,
     ``nB`` sequences and are ``wA``, ``wB`` columns wide (one entry per
-    cluster). Bytes in: of each of the |A| x |B| blocks of ``Pblock`` that
-    the masks select, the wA x wB entries (bf16) that the members' column
+    cluster). Bytes in: of each of the |A| x |B| pairs of the pair tensor
+    that the masks select, the wA x wB entries (bf16) that the members' column
     maps address; the first wA (wB) entries of each member's column map
     (int32); a mask byte per member; the two widths. Bytes out: a code and
     a position per diagonal, 2 Cmax of them."""

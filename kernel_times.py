@@ -11,6 +11,7 @@ versions.
     python3 kernel_times.py --ptxas         # registers, shared memory, spills of every kernel
     python3 kernel_times.py --generic       # K1's generic kernel on other codes, tiles staged and in place
     python3 kernel_times.py --k2 [--against DIR]  # K2's trial route and _pairs_k2 only
+    python3 kernel_times.py --merge [--against DIR]  # the merge rows only
 
 ``DIR`` is a second checkout (``git archive <commit> | tar -x -C tmp_parent``);
 each turn is a process of its own that imports ``dna_ldpc_tpu_torch`` from
@@ -287,6 +288,14 @@ def measure_k2(repo: str) -> dict:
             **pairs_k2_times(dev, *smoke_trial())}
 
 
+def measure_merge(repo: str) -> dict:
+    """The merge's part of ``measure`` (``--merge``)."""
+    sys.path.insert(0, repo)
+    import torch
+
+    return {"repo": os.path.relpath(repo, HERE), "card": _card(), **merge_times(torch.device("cuda", 0))}
+
+
 def ptxas() -> None:
     """Registers, shared memory and spills of every kernel of the port."""
     from dna_ldpc_tpu_torch import cuda_lib
@@ -342,6 +351,7 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v for every kernel and stop")
     ap.add_argument("--generic", action="store_true", help="time K1's generic kernel, tiles staged and in place")
     ap.add_argument("--k2", action="store_true", help="time only K2's trial route and _pairs_k2 (with --against too)")
+    ap.add_argument("--merge", action="store_true", help="time only the merge (with --against too)")
     ap.add_argument("--against", help="a second checkout: run it, this one twice, and it again")
     a = ap.parse_args()
     import torch
@@ -351,7 +361,8 @@ def main() -> int:
         return 2
     if a.against:
         for repo in (a.against, HERE, HERE, a.against):
-            cmd = [sys.executable, os.path.abspath(__file__), "--repo", os.path.abspath(repo)] + ["--k2"] * a.k2
+            cmd = ([sys.executable, os.path.abspath(__file__), "--repo", os.path.abspath(repo)] + ["--k2"] * a.k2
+                   + ["--merge"] * a.merge)
             rc = subprocess.run(cmd, cwd=os.path.abspath(repo)).returncode
             if rc:
                 return rc
@@ -362,7 +373,7 @@ def main() -> int:
     if a.generic:
         print(json.dumps(generic()))
     else:
-        print(json.dumps((measure_k2 if a.k2 else measure)(os.path.abspath(a.repo))))
+        print(json.dumps((measure_k2 if a.k2 else measure_merge if a.merge else measure)(os.path.abspath(a.repo))))
     return 0
 
 

@@ -27,6 +27,9 @@ on converging words; the SC-LDPC window kernel gives its plain version's
 posteriors bit for bit, at every Eb/No: the same float32 operations on the
 same libdevice routines, with its sums taken in torch's order."""
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +47,9 @@ from dna_ldpc_tpu_torch.ops.msa.consistency import consistency_clusters, consist
 from dna_ldpc_tpu_torch.ops.msa.pairhmm import encode_pairs
 from dna_ldpc_tpu_torch.pipeline.simulate import group_union_codewords
 from dna_ldpc_tpu_torch.utils.dna import seqs_to_matrix
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from block_operand import pblock, pblock_build_post  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 MAG = float(np.log(0.98 / 0.02))
@@ -574,8 +580,9 @@ def test_consistency_clusters_on_device(dev, min_device_clusters):
                 np.testing.assert_allclose(a, b, atol=2e-5, rtol=1e-4)
 
 
-# (n true, bucket): the device MSA's buckets (device_msa.MSA_BUCKETS) from 3 to 32 reads
-CONSISTENCY_SIZES = [(3, 4), (4, 4), (5, 8), (8, 8), (9, 12), (12, 12), (16, 16), (32, 32)]
+# (n true, bucket): the device MSA's buckets (device_msa.MSA_BUCKETS) from 3 to 64 reads
+CONSISTENCY_SIZES = [(3, 4), (4, 4), (5, 8), (8, 8), (9, 12), (12, 12), (16, 16), (32, 32), (33, 64), (48, 64),
+                     (64, 64)]
 
 
 def _consistency_batch(rng, n, nb, L=160, C=3):
@@ -776,13 +783,14 @@ def test_consistency_clusters_long_reads_on_device(dev):
 
 
 def _merge_case(dev, nb, Cmax, C=6, seed=0):
-    """A batched merge on the card: random pair posteriors with most of
-    their mass on the diagonal, and two gapped profiles a cluster, drawn
-    directly as column maps. Cluster 0 matches the second half of every
-    read to the first letter of every other (its path runs down A before
-    it crosses B: more than Cmax columns at Cmax >= 192, an overflow),
-    cluster 1 has an empty read as its A, cluster 2 an empty B, and the
-    last cluster is a pad (all-false masks)."""
+    """A batched merge on the card: the bf16 pair tensor of random pair
+    posteriors with most of their mass on the diagonal, and two gapped
+    profiles a cluster, drawn directly as column maps. Cluster 0 matches
+    the second half of every read to the first letter of every other (its
+    path runs down A before it crosses B: more than Cmax columns at
+    Cmax >= 192, an overflow), cluster 1 has an empty read as its A,
+    cluster 2 an empty B, and the last cluster is a pad (all-false
+    masks)."""
     L = Cmax - device_msa.COLUMN_SLACK
     rng = np.random.default_rng(seed + 100 * nb + Cmax)
     gen = torch.Generator(device=dev).manual_seed(seed + nb + Cmax)
@@ -792,11 +800,10 @@ def _merge_case(dev, nb, Cmax, C=6, seed=0):
         torch.rand((C, npair, L, L), generator=gen, device=dev) < 0.3)
     idx = torch.arange(L, device=dev)
     P[:, :, idx, idx] += 0.5
-    Pblock = device_msa.build_pblock(P, nb)
-    del P
-    blocks = Pblock.view(C, nb, L + 1, nb, L + 1)
-    blocks[0] = 0
-    blocks[0, :, L // 2 : L, :, 0] = 0.9
+    P = P.to(torch.bfloat16)
+    P[0] = 0
+    P[0, :, L // 2 : L, 0] = 0.9  # pair (s1, s2), s1 < s2: s1's second half against s2's first letter
+    P[0, :, 0, L // 2 : L] = 0.9  # and s2's second half against s1's first letter
     mA = np.zeros((C, nb), bool)
     mB = np.zeros((C, nb), bool)
     cpos = np.full((C, nb, Cmax + 1), L, np.int32)
@@ -818,11 +825,11 @@ def _merge_case(dev, nb, Cmax, C=6, seed=0):
     tA, tB = torch.from_numpy(mA).to(dev), torch.from_numpy(mB).to(dev)
     cposA, wA = device_msa._project(cpos_t, tA, Cmax, L)
     cposB, wB = device_msa._project(cpos_t, tB, Cmax, L)
-    return Pblock, cposA, cposB, tA, tB, wA, wB, Cmax, L
+    return P, cposA, cposB, tA, tB, wA, wB, Cmax, L
 
 
 @pytest.mark.parametrize("Cmax", [64, 192, 286])
-@pytest.mark.parametrize("nb", [2, 8, 32])
+@pytest.mark.parametrize("nb", [2, 8, 32, 33, 48, 64])
 def test_merge_kernel_matches_twin(dev, nb, Cmax):
     """``merge_dp`` (BuildPost + DP + walk in one kernel) against
     BuildPost into device memory followed by the full-plane twin: codes
@@ -846,14 +853,36 @@ def test_merge_kernel_refuses_what_it_cannot_take(dev):
     args = list(_merge_case(dev, 2, 64))
     with pytest.raises(ValueError, match="several devices"):
         mea_cuda.merge_walk(args[0].cpu(), *args[1:])
-    # Cmax = 300 needs ten columns a lane (L = 268: nb (L + 1) = 538 rows of Pblock)
+    # Cmax = 300 needs ten columns a lane (L = 268)
     nb, L, Cmax = 2, 268, 300
     cpos = torch.zeros((1, nb, Cmax + 1), dtype=torch.int32, device=dev)
     mask = torch.ones((1, nb), dtype=torch.bool, device=dev)
     widths = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="Cmax=300"):
-        mea_cuda.merge_walk(torch.zeros((1, nb * (L + 1), nb * (L + 1)), dtype=torch.bfloat16, device=dev),
+        mea_cuda.merge_walk(torch.zeros((1, 1, L + 1, L + 1), dtype=torch.bfloat16, device=dev),
                             cpos, cpos, mask, mask, widths, widths, Cmax, L)
+    # 65 members: past the kernel's two ballots
+    nb, L, Cmax = 65, 8, 40
+    cpos = torch.zeros((1, nb, Cmax + 1), dtype=torch.int32, device=dev)
+    mask = torch.ones((1, nb), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="at most 64 sequences"):
+        mea_cuda.merge_walk(torch.zeros((1, nb * (nb - 1) // 2, L + 1, L + 1), dtype=torch.bfloat16, device=dev),
+                            cpos, cpos, mask, ~mask, widths, widths, Cmax, L)
+
+
+@pytest.mark.parametrize("nb", [2, 8, 32, 64])
+def test_merge_kernel_pair_operand_equals_block_operand(dev, nb):
+    """``merge_dp`` reading the pair tensor (s1 > s2 transposed) against
+    the MEA walk of BuildPost from the block matrix of the same pairs (the
+    operand it read before): codes and positions bit-equal."""
+    args = _merge_case(dev, nb, 192, seed=7)
+    P, cposA, cposB, mA, mB, wA, wB, Cmax, L = args
+    codes, pos = mea_cuda.merge_walk(*args)
+    post = pblock_build_post(pblock(P, nb), cposA, cposB, mA, mB, Cmax, L)
+    codes_r, pos_r = mea_cuda.mea_walk_ref(post, wA, wB, Cmax)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, codes_r) and torch.equal(pos, pos_r)
+    assert int((codes != 0).sum()) > Cmax
 
 
 def test_run_msa_batch_on_device(dev):
@@ -888,6 +917,44 @@ def test_run_msa_batch_on_device(dev):
     assert mea_cuda.merge_launches > before
     want, want_ovf = device_msa.run_msa_batch(P, clusters, joins, nb, Lmax, 100, 0)
     assert got == want and np.array_equal(ovf, want_ovf) and not ovf.any()
+
+
+def test_run_msa_batch_bucket_64_on_device(dev):
+    """One bucket-64 batch of the device MSA on the card (clusters of 33,
+    48 and 64 reads of one strand) gives the CPU twin's rows and overflow
+    flags from the same assembled pairs (K2 and the consistency kernel on
+    the card)."""
+    rng = np.random.default_rng(64)
+    nb, Lmax = 64, 160
+    clusters = [_copies(rng, n) for n in (33, 48, 64)]
+    slot = {pair: k for k, pair in enumerate(cluster_pairs(nb))}
+    xs, ys, ids, joins = [], [], [], []
+    for c, seqs in enumerate(clusters):
+        ids.append((c, len(xs), len(seqs)))
+        for i, j in cluster_pairs(len(seqs)):
+            xs.append(seqs[i])
+            ys.append(seqs[j])
+    posts, ea = pairhmm.k2_posteriors(xs, ys, Lmax, dev)
+    flat = np.zeros(len(clusters) * len(slot), np.int64)
+    mask = np.zeros(len(flat), bool)
+    inv_n = np.ones(len(clusters), np.float32)
+    lengths = np.zeros((len(clusters), nb), np.int32)
+    for c, lo, n in ids:
+        inv_n[c] = 1.0 / n
+        lengths[c, :n] = [len(q) for q in clusters[c]]
+        joins.append(upgma_join_order(_ea_dists(clusters[c], ea[lo : lo + n * (n - 1) // 2])))
+        for p, pair in enumerate(cluster_pairs(n)):
+            flat[c * len(slot) + slot[pair]] = lo + p
+            mask[c * len(slot) + slot[pair]] = True
+    P = device_msa.assemble_transform(posts, torch.from_numpy(flat).to(dev), torch.from_numpy(mask).to(dev),
+                                      torch.from_numpy(inv_n).to(dev), nb, 2, len(clusters), Lmax, lengths)
+    before = mea_cuda.merge_launches
+    got, ovf = device_msa.run_msa_batch(P, clusters, joins, nb, Lmax, 100, 0)
+    assert mea_cuda.merge_launches > before
+    want, want_ovf = device_msa.run_msa_batch(P.cpu(), clusters, joins, nb, Lmax, 100, 0)
+    assert got == want and np.array_equal(ovf, want_ovf) and not ovf.any()
+    for seqs, rows in zip(clusters, got):
+        assert [r.replace("-", "") for _, r in rows] == seqs
 
 
 def test_batch_posteriors_one_pair_and_general_tables_on_device(dev):

@@ -5,8 +5,9 @@ numpy inputs.
 - ``mea_walk_ref`` (the DP and walk of the ``merge_dp`` kernel's twin)
   equals JAX ``_mea_forward`` + ``_walk`` bit for bit, on random
   posteriors and on posteriors quantised to a few values (exact ties);
-- ``build_pblock`` is bit-equal; ``_build_post`` within 1e-6 relative (the
-  same bf16 values summed in f32, in another order);
+- the pair tensor read as the JAX package's block matrix (``build_pblock``)
+  is bit-equal; ``_build_post`` within 1e-6 relative (the same bf16
+  values summed in f32, in another order);
 - ``assemble_transform`` within one bf16 ulp (the consistency products
   are summed in another order before the bf16 rounding);
 - ``run_msa_batch`` and ``_align_clusters_device`` give the JAX package's
@@ -98,10 +99,13 @@ def _random_merge_inputs(seed, C=6, nb=4, L=20):
 
 
 def test_build_pblock_matches_jax():
+    """The merge's twin reads the pair tensor row block by row block
+    (``mea_cuda._row_block``) as the JAX package's block matrix holds it."""
     P, *_ = _random_merge_inputs(3)
-    want = j_dm.build_pblock(jnp.asarray(P), 4)
-    got = t_dm.build_pblock(torch.from_numpy(P), 4)
-    assert got.dtype == torch.bfloat16 and got.shape == tuple(want.shape)
+    want = np.asarray(j_dm.build_pblock(jnp.asarray(P), 4))
+    Pb = torch.from_numpy(P).to(torch.bfloat16)
+    got = torch.cat([mea_cuda._row_block(Pb, s, 4) for s in range(4)], 1)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
     np.testing.assert_array_equal(_bf16_bits(got), _bf16_bits(want))
 
 
@@ -112,7 +116,7 @@ def test_build_post_matches_jax():
     tA, tB = torch.from_numpy(mA), torch.from_numpy(mB)
     cposA, _ = t_dm._project(cpos, tA, Cmax, L)
     cposB, _ = t_dm._project(cpos, tB, Cmax, L)
-    got = mea_cuda._build_post(t_dm.build_pblock(torch.from_numpy(P), 4), cposA, cposB, tA, tB, Cmax, L)
+    got = mea_cuda._build_post(torch.from_numpy(P).to(torch.bfloat16), cposA, cposB, tA, tB, Cmax, L)
     want = j_dm._build_post(
         j_dm.build_pblock(jnp.asarray(P), 4), jnp.asarray(cposA.numpy()), jnp.asarray(cposB.numpy()),
         jnp.asarray(mA), jnp.asarray(mB), Cmax, L,
@@ -209,7 +213,7 @@ def test_overflow_falls_back_to_host(monkeypatch):
     shifted = [u + v, v + w]
     related = [_mutate("".join(BASES[i] for i in rng.integers(0, 4, 120)), rng) for _ in range(3)]
     big_base = "".join(BASES[i] for i in rng.integers(0, 4, 24))
-    big = [_mutate(big_base, rng) for _ in range(33)]
+    big = [_mutate(big_base, rng) for _ in range(65)]
     clusters = [shifted, related, big, ["ACGT"], []]
     monkeypatch.setattr(t_align, "msa_clusters", 0)
     monkeypatch.setattr(t_align, "fallback_clusters", 0)

@@ -11,13 +11,19 @@ plain-Python models of what its CUDA kernel computes.
   must be equal exactly wherever the planes are bit-equal, and may differ
   only in a cluster whose planes differ (a near-tie).
 - The kernel's per-cell BuildPost — loops over the members of A and B
-  only, in ascending order — equals ``_build_post`` bit for bit, though
-  the latter also adds the zero gap row of block 0 for every non-member.
+  only, in ascending order, each pair read at its slot of the pair
+  tensor, transposed where s1 > s2 — equals ``_build_post`` bit for bit,
+  though the latter also adds a zero gap row for every non-member; and
+  ``_build_post`` from the pair tensor equals, bit for bit, BuildPost
+  from the JAX package's block matrix of the same pairs (``build_pblock``).
 - The kernel's sweep — only the box [0..wA] x [0..wB], a lane per strip
   of columns, two-bit codes packed per lane and step, the walk on the
   packed plane — gives the codes and positions of the full-plane
   ``mea_walk_ref``, by hypothesis over the widths, with planted ties.
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -32,13 +38,16 @@ from dna_ldpc_tpu_torch.ops.msa import device_msa as t_dm
 from dna_ldpc_tpu_torch.ops.msa import mea_cuda
 from dna_ldpc_tpu_torch.ops.msa.mea_cuda import CB, CX, CY
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from block_operand import pblock, pblock_build_post  # noqa: E402
+
 # The suite runs in several worker processes that share the cores: one
 # intra-op thread per process keeps OpenMP from oversubscribing them.
 torch.set_num_threads(1)
 
 
 def merge_inputs(seed: int, nb: int, multi: bool, kind: str, C: int = 5, L: int = 18, Cmax: int = 24):
-    """A batched merge as ``_merge_step`` sees it: the block matrix of
+    """A batched merge as ``_merge_step`` sees it: the bf16 pair tensor of
     random pair posteriors ("random": uniform, 30 % dense; "dyadic":
     multiples of 1/64 whose sums are exact in bf16; 0.5 more on the
     diagonal), two projected operands and their masks and widths. ``multi``: pairs of sequences
@@ -58,7 +67,7 @@ def merge_inputs(seed: int, nb: int, multi: bool, kind: str, C: int = 5, L: int 
     lens = rng.integers(L // 2, L + 1, (C, nb)).astype(np.int32)
     lens[-1] = 0
     P[-1] = 0
-    Pblock = t_dm.build_pblock(torch.from_numpy(P), nb)
+    P = torch.from_numpy(P).to(torch.bfloat16)
     cpos, width = t_dm._msa_init(torch.from_numpy(lens), Cmax, L)
     mA = np.zeros((C, nb), bool)
     mB = np.zeros((C, nb), bool)
@@ -68,7 +77,7 @@ def merge_inputs(seed: int, nb: int, multi: bool, kind: str, C: int = 5, L: int 
         for a in range(0, nb - 1, 2):
             wa, wb = np.zeros((C, nb), bool), np.zeros((C, nb), bool)
             wa[:-1, a], wb[:-1, a + 1] = True, True
-            cpos, width, _, _ = t_dm._merge_step(Pblock, cpos, width, torch.from_numpy(wa), torch.from_numpy(wb),
+            cpos, width, _, _ = t_dm._merge_step(P, cpos, width, torch.from_numpy(wa), torch.from_numpy(wb),
                                                  ok, Cmax, L)
         half = nb // 2 - nb // 2 % 2
         mA[:-1, :half] = True
@@ -81,28 +90,28 @@ def merge_inputs(seed: int, nb: int, multi: bool, kind: str, C: int = 5, L: int 
     tA, tB = torch.from_numpy(mA), torch.from_numpy(mB)
     cposA, wA = t_dm._project(cpos, tA, Cmax, L)
     cposB, wB = t_dm._project(cpos, tB, Cmax, L)
-    return Pblock, cposA, cposB, tA, tB, wA, wB, Cmax, L
+    return P, cposA, cposB, tA, tB, wA, wB, Cmax, L
 
 
 @pytest.mark.parametrize("kind", ["random", "dyadic"])
 @pytest.mark.parametrize("nb,multi", [(2, False), (4, False), (4, True), (8, False), (8, True)])
 def test_merge_walk_matches_jax(nb, multi, kind):
-    Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L = merge_inputs(10 * nb + multi, nb, multi, kind)
+    P, cposA, cposB, mA, mB, wA, wB, Cmax, L = merge_inputs(10 * nb + multi, nb, multi, kind)
     if multi:
         assert ((cposA[:, :, : Cmax // 2] == L) & mA[:, :, None]).any()  # gaps inside an operand
     before = mea_cuda.merge_launches
-    codes, pos = mea_cuda.merge_walk(Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L)
+    codes, pos = mea_cuda.merge_walk(P, cposA, cposB, mA, mB, wA, wB, Cmax, L)
     assert mea_cuda.merge_launches == before  # CPU tensors: the twin ran
     assert codes.dtype == torch.uint8 and pos.dtype == torch.int32 and codes.shape == pos.shape == (len(wA), 2 * Cmax)
 
     j_post = j_dm._build_post(
-        jnp.asarray(Pblock.float().numpy()).astype(jnp.bfloat16), jnp.asarray(cposA.numpy()),
+        j_dm.build_pblock(jnp.asarray(P.float().numpy()), nb), jnp.asarray(cposA.numpy()),
         jnp.asarray(cposB.numpy()), jnp.asarray(mA.numpy()), jnp.asarray(mB.numpy()), Cmax, L,
     )
     cd = j_dm._mea_forward(j_post, Cmax)
     want_codes, want_pos = (np.asarray(a) for a in j_dm._walk(cd, jnp.asarray(wA.numpy()), jnp.asarray(wB.numpy()), Cmax))
     j_post = np.asarray(j_post)
-    t_post = mea_cuda._build_post(Pblock, cposA, cposB, mA, mB, Cmax, L).numpy()
+    t_post = mea_cuda._build_post(P, cposA, cposB, mA, mB, Cmax, L).numpy()
     np.testing.assert_allclose(t_post, j_post, rtol=1e-6, atol=0)  # f32 sums in another order
     same_plane = (t_post == j_post).all((1, 2))
     if kind == "dyadic" or not multi:
@@ -117,28 +126,48 @@ def test_merge_walk_matches_jax(nb, multi, kind):
 
 def test_member_only_sums_equal_build_post():
     """BuildPost per cell, over the members of A and B only (what the
-    kernel computes), against ``_build_post`` (which adds a zero for every
-    other sequence): equal bit for bit, on the whole [Cmax, Cmax] plane."""
-    Pblock, cposA, cposB, mA, mB, _, _, Cmax, L = merge_inputs(7, 4, True, "random", C=3, L=10, Cmax=14)
-    want = mea_cuda._build_post(Pblock, cposA, cposB, mA, mB, Cmax, L)
+    kernel computes: each pair at its slot, as stored below s2 and
+    transposed above it), against ``_build_post`` (which adds a zero for
+    every other sequence): equal bit for bit, on the whole [Cmax, Cmax]
+    plane."""
+    P, cposA, cposB, mA, mB, _, _, Cmax, L = merge_inputs(7, 4, True, "random", C=3, L=10, Cmax=14)
+    want = mea_cuda._build_post(P, cposA, cposB, mA, mB, Cmax, L)
     got = torch.zeros_like(want)
     zero = torch.zeros((), dtype=torch.float32)
-    for c in range(Pblock.shape[0]):
+    slot = {pair: k for k, pair in enumerate(zip(*np.triu_indices(4, 1)))}
+    for c in range(P.shape[0]):
         A = [s for s in range(4) if mA[c, s]]
         B = [s for s in range(4) if mB[c, s]]
         for x in range(Cmax):
-            rows = [s * (L + 1) + int(cposA[c, s, x]) for s in A]
             for y in range(Cmax):
                 post = zero.clone()
                 for s2 in B:
-                    col = s2 * (L + 1) + int(cposB[c, s2, y])
+                    u2 = int(cposB[c, s2, y])
                     first = zero.clone()
-                    for row in rows:
-                        first = first + Pblock[c, row, col].float()
+                    for s1 in A:
+                        u1 = int(cposA[c, s1, x])
+                        v = P[c, slot[(s1, s2)], u1, u2] if s1 < s2 else P[c, slot[(s2, s1)], u2, u1]
+                        first = first + v.float()
                     post = post + first.to(torch.bfloat16).float()
                 got[c, x, y] = post
     assert (want > 0).float().mean() > 0.1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("nb,multi", [(2, False), (8, True), (32, True), (64, False), (64, True)])
+def test_pair_tensor_operand_equals_block_matrix_operand(nb, multi):
+    """BuildPost and the whole merge from the pair tensor (what the kernel
+    reads) against BuildPost from the block matrix of the same pairs (what
+    it read before): the same posterior plane bit for bit, so the same
+    codes and positions, at buckets 2 to 64."""
+    P, cposA, cposB, mA, mB, wA, wB, Cmax, L = merge_inputs(300 + nb, nb, multi, "random", C=3, L=12, Cmax=18)
+    want = pblock_build_post(pblock(P, nb), cposA, cposB, mA, mB, Cmax, L)
+    got = mea_cuda._build_post(P, cposA, cposB, mA, mB, Cmax, L)
+    assert (want > 0).float().mean() > 0.05
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    codes, pos = mea_cuda.merge_walk(P, cposA, cposB, mA, mB, wA, wB, Cmax, L)
+    want_codes, want_pos = mea_cuda.mea_walk_ref(want, wA, wB, Cmax)
+    assert torch.equal(codes, want_codes) and torch.equal(pos, want_pos)
 
 
 # ---------------------------------------------------------------------------
@@ -227,15 +256,17 @@ def test_box_sweep_edges(wa, wb):
 
 
 def test_merge_walk_checks_its_inputs():
-    Pblock, cposA, cposB, mA, mB, wA, wB, Cmax, L = merge_inputs(1, 2, False, "random")
-    with pytest.raises(ValueError, match="Pblock must be"):
-        mea_cuda.merge_walk(Pblock.float(), cposA, cposB, mA, mB, wA, wB, Cmax, L)
-    with pytest.raises(ValueError, match="Pblock must be"):
-        mea_cuda.merge_walk(Pblock, cposA[:, :, :-1], cposB, mA, mB, wA, wB, Cmax, L)
+    P, cposA, cposB, mA, mB, wA, wB, Cmax, L = merge_inputs(1, 2, False, "random")
+    with pytest.raises(ValueError, match="P must be"):
+        mea_cuda.merge_walk(P.float(), cposA, cposB, mA, mB, wA, wB, Cmax, L)
+    with pytest.raises(ValueError, match="P must be"):
+        mea_cuda.merge_walk(P, cposA[:, :, :-1], cposB, mA, mB, wA, wB, Cmax, L)
+    with pytest.raises(ValueError, match="P must be"):
+        mea_cuda.merge_walk(pblock(P, 2), cposA, cposB, mA, mB, wA, wB, Cmax, L)  # the old block operand
     with pytest.raises(ValueError, match="must be bool"):
-        mea_cuda.merge_walk(Pblock, cposA, cposB, mA.int(), mB, wA, wB, Cmax, L)
+        mea_cuda.merge_walk(P, cposA, cposB, mA.int(), mB, wA, wB, Cmax, L)
     with pytest.raises(ValueError, match="several devices"):
-        mea_cuda.merge_walk(Pblock, cposA, cposB, mA, mB, wA.to("meta"), wB, Cmax, L)
+        mea_cuda.merge_walk(P, cposA, cposB, mA, mB, wA.to("meta"), wB, Cmax, L)
 
 
 def test_merge_bound_counts_the_selected_blocks_and_the_box():

@@ -66,6 +66,9 @@ EXCEPTIONS = {
     ("ops/msa/consistency.py", "consistency_clusters.cluster_sparse"): (SPARSE, None),
     ("ops/msa/device_msa.py", "NEG"): ("renamed: the MEA DP's off-plane value, beside the merge kernel",
                                        "ops.msa.mea_cuda:NEG"),
+    ("ops/msa/device_msa.py", "build_pblock"): (
+        "left out: the merge kernel reads each pair at its slot of the batch's pair tensor, transposed where "
+        "s1 > s2; no block matrix is laid out", "ops.msa.mea_cuda:merge_walk"),
     ("ops/msa/device_msa.py", "MsaJob.packed"): (PACKED, None),
     ("ops/msa/device_msa.py", "MsaJob.nb"): (PACKED, None),
     ("ops/msa/device_msa.py", "assemble_transform.chunks"): (
